@@ -1,0 +1,440 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line with its seconds:
+
+1. device   the card's name, count and power limit (nvidia-smi);
+2. build    nvcc builds the port's CUDA kernels (ptxas register/spill lines);
+3. k1, k2   each kernel against its plain PyTorch version on the card, at the
+            serve shape (B = 8192) and the bench shape (B = 16384): error
+            against the stated tolerance, time by CUDA events, the least
+            time the card could take (bound) and the share of it reached;
+4. serve    the v2_600 calibration network (transformer head, embed 256,
+            6 layers, 8 heads) loaded from the JAX package's numpy checkpoint,
+            answering 4 requests of 1,024 generated scenes with 8 restarts
+            each (8,192-element BFGS solves, strong Wolfe search); latency,
+            errors against ground truth, and the kernels' launch counts;
+            plus the same network on a small input against the CPU run,
+            and a torch.profiler breakdown of one (shortened) request;
+5. bench    one BFGS solve at bench.py's shape (B = 16384, 4 views x 8
+            points, 20 iterations, backtracking capped at 6 probes);
+6. the kernels line, then the last line:
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+
+Any mismatch beyond tolerance, a failed build or launch, or a kernel the
+main path never launched raises, and the script exits non-zero.  Without
+a card it exits non-zero before doing anything.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CHECKPOINT = os.path.join(REPO, "artifacts", "calibration_transformer_v2_600.pkl")
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+SERVE_SCENES, SERVE_RESTARTS, SERVE_REQUESTS = 1024, 8, 4
+BENCH_BATCH, BENCH_ITERATIONS, BENCH_PROBES = 16384, 20, 6
+M, N = 4, 8
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cuda_ms(fn, reps, warmup=3):
+    """Mean milliseconds per call of ``fn`` by CUDA events over ``reps``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(name, actual, expected, tol):
+    """Normwise relative error ``max|a - e| / max(1, max|e|)`` within tol."""
+    diff = (actual.float() - expected.float()).abs().max().item()
+    scale = max(1.0, expected.float().abs().max().item())
+    rel = diff / scale
+    if not math.isfinite(rel) or rel > tol:
+        raise AssertionError(f"{name}: max abs diff {diff} (normwise {rel}) exceeds {tol}")
+    return {"max_abs_err": diff, "normwise_rel_err": rel, "tolerance": tol}
+
+
+def bound(bytes_moved, operations):
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = operations / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- K1 ----
+
+
+def k1_inputs(batch, p, h_dtype, device, seed):
+    """Symmetric positive-definite H, curvature pairs y = A s with A SPD
+    (y.s > 0), 1/16 of the elements with y.s <= 0, a mixed updating mask."""
+    g = torch.Generator(device).manual_seed(seed)
+    a = torch.randn(batch, p, p, generator=g, device=device) / math.sqrt(p)
+    h = torch.eye(p, device=device) + a @ a.transpose(1, 2)
+    s = 0.1 * torch.randn(batch, p, generator=g, device=device)
+    b = torch.randn(batch, p, p, generator=g, device=device) / math.sqrt(p)
+    y = torch.einsum("bij,bj->bi", torch.eye(p, device=device) + b @ b.transpose(1, 2), s)
+    k = batch // 16
+    y[:k] = -s[:k] * torch.rand(k, p, generator=g, device=device)
+    grad = torch.randn(batch, p, generator=g, device=device)
+    updating = torch.rand(batch, generator=g, device=device) > 0.25
+    h_t = h.permute(1, 2, 0).contiguous().to(h_dtype)
+    return h_t, s.contiguous(), y.contiguous(), grad.contiguous(), updating
+
+
+def k1_phase(batch, h_dtype, device):
+    from davo_tpu_torch.ops.bfgs_update import fused_bfgs_update_direction, reference_update_direction
+
+    p = 3 + 3 * N + 6 * (M - 1)
+    h_t, s, y, grad, updating = k1_inputs(batch, p, h_dtype, device, seed=batch)
+    h_bm = h_t.permute(2, 0, 1).float()
+
+    def plain(first, second):
+        h_out, d = reference_update_direction(h_bm, s, y, grad, updating, first, second)
+        return h_out.permute(1, 2, 0).to(h_dtype), d
+
+    h_tol = 1e-2 if h_dtype == torch.bfloat16 else 1e-4  # bf16: one rounding of H+
+    checks, worst = {}, 0.0
+    for label, first, second in (("step1", True, False), ("step2", False, True), ("later", False, False)):
+        k_h, k_d = fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        torch.cuda.synchronize()
+        p_h, p_d = plain(first, second)
+        checks[label] = {"H": check(f"K1 {label} H", k_h, p_h, h_tol), "d": check(f"K1 {label} d", k_d, p_d, 1e-4)}
+        worst = max(worst, checks[label]["H"]["max_abs_err"], checks[label]["d"]["max_abs_err"])
+    ms = cuda_ms(lambda: fused_bfgs_update_direction(h_t, s, y, grad, updating, False, False), reps=50)
+    plain_ms = cuda_ms(lambda: plain(False, False), reps=10, warmup=1)
+    # least traffic: H read once and written once; s, y, g read, d written,
+    # the mask read; operations: Hy (2P^2), the update (6P^2), -H+ g (2P^2)
+    h_bytes = 2 if h_dtype == torch.bfloat16 else 4
+    bytes_moved = batch * (2 * p * p * h_bytes + 4 * p * 4 + 1)
+    operations = batch * 10 * p * p
+    bound_ms, bound_by = bound(bytes_moved, operations)
+    return dict(
+        batch=batch, h_dtype=str(h_dtype).replace("torch.", ""), checks=checks, max_abs_err=worst,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        library_ms=None,
+    )
+
+
+# ---------------------------------------------------------------- K2 ----
+
+
+def k2_operations(m, n):
+    """Float32 operations of one element's value+gradient, counted line by
+    line from csrc/calibration_obj.cu (an FMA counts 2; a sqrt, division,
+    exp, sin, cos, comparison or select counts 1): a (view, point) term of
+    view 1 costs 158 (forward 88: normalisations, Kahan distance, atan2
+    polynomial; reverse 70), a term of a rotated view 104 more (Rodrigues
+    forward 30, its adjoint 74); each rotated view 63 for its trigonometric
+    ratios and their derivatives; the gauge rescale and its adjoint about
+    5 per parameter plus 20."""
+    p = 3 + 3 * n + 6 * (m - 1)
+    return m * n * 158 + (m - 1) * n * 104 + (m - 1) * 63 + 5 * p + 20
+
+
+def k2_inputs(batch, device, seed):
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+
+    g = torch.Generator(device).manual_seed(seed)
+    scenes = generate_batch(g, batch, SceneConfig(num_views=M, num_points=N), device=device)
+    p = 3 + 3 * N + 6 * (M - 1)
+    params = 0.3 * torch.randn(batch, p, generator=g, device=device)
+    params[:, 0] += 1.0
+    params[:, 5 : 3 + 3 * N : 3] += 1.0
+    r0 = 3 + 3 * N + 3 * (M - 1)
+    params[: batch // 8, r0:] *= 1e-3  # small angles: the Taylor branches
+    params[batch // 8 : batch // 4, 0] -= 2.0  # negative focal: the exp branch
+    vis = scenes.visibility_mask.float()
+    u = scenes.projected_points[..., 0].permute(1, 2, 0).contiguous()
+    v = scenes.projected_points[..., 1].permute(1, 2, 0).contiguous()
+    return params.contiguous(), u, v, vis.permute(1, 2, 0).contiguous()
+
+
+def k2_phase(batch, device):
+    from davo_tpu_torch.ops.calibration_obj import _value_and_grad_plain, calibration_value_and_grad
+
+    params, u, v, vis = k2_inputs(batch, device, seed=batch + 1)
+    k_err, k_grad = calibration_value_and_grad(params, u, v, vis)
+    torch.cuda.synchronize()
+    p_err, p_grad = _value_and_grad_plain(params, u, v, vis)
+    # float32 sums of 32 angles / gradient terms in another order
+    checks = {"error": check("K2 error", k_err, p_err, 1e-5), "gradient": check("K2 gradient", k_grad, p_grad, 1e-4)}
+    ms = cuda_ms(lambda: calibration_value_and_grad(params, u, v, vis), reps=100)
+    plain_ms = cuda_ms(lambda: _value_and_grad_plain(params, u, v, vis), reps=10, warmup=1)
+    p = params.shape[1]
+    bytes_moved = batch * 4 * (p + 3 * M * N + 1 + p)
+    operations = batch * k2_operations(M, N)
+    bound_ms, bound_by = bound(bytes_moved, operations)
+    return dict(
+        batch=batch, checks=checks,
+        max_abs_err=max(checks["error"]["max_abs_err"], checks["gradient"]["max_abs_err"]),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        library_ms=None, operations_per_element=k2_operations(M, N),
+    )
+
+
+# ------------------------------------------------------------- serve ----
+
+
+def serve_network(device, **solver_overrides):
+    from davo_tpu_torch.models import load_calibration_network
+    from davo_tpu_torch.solve import BFGSConfig
+
+    # calibration_transformer_curriculum eval solver: strong Wolfe,
+    # 100 iterations, 50 probes, error threshold 1e-7
+    solver = dict(error_threshold=1e-7, iterations=100, line_search_iterations=50)
+    solver.update(solver_overrides)
+    return load_calibration_network(
+        CHECKPOINT, device=device, num_views=M, num_points=N, hidden_size=256,
+        head="transformer", transformer_layers=6, transformer_heads=8,
+        num_restarts=SERVE_RESTARTS, solver=BFGSConfig(**solver),
+    )
+
+
+def focal_error(params, scenes):
+    focal = torch.nn.functional.elu(params[:, 0]) + 1.0
+    return (focal - scenes.camera_intrinsics[:, 0]).abs()
+
+
+def serve_phase(device):
+    from davo_tpu_torch.camera import calibration_error
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+    from davo_tpu_torch.ops import build
+
+    network = serve_network(device)
+    requests = []
+    # the main path: every launch counter from 0 just before it
+    build.reset_launch_counts()
+    for seed in range(SERVE_REQUESTS):
+        scenes = generate_batch(torch.Generator(device).manual_seed(seed), SERVE_SCENES, SceneConfig(), device=device)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        params, error = network(
+            scenes.projected_points, scenes.visibility_mask,
+            generator=torch.Generator(device).manual_seed(1000 + seed), return_error=True,
+        )
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - start
+        guess = network.guess(scenes.projected_points, scenes.visibility_mask)
+        guess_error = calibration_error(guess, scenes.projected_points, scenes.visibility_mask.float())
+        if params.shape != (SERVE_SCENES, network.num_parameters) or not torch.isfinite(params).all():
+            raise AssertionError(f"request {seed}: bad output shape {tuple(params.shape)} or non-finite values")
+        if not error.mean() < guess_error.mean():
+            raise AssertionError(f"request {seed}: the solve did not lower the error ({error.mean()} vs {guess_error.mean()})")
+        requests.append(dict(
+            seed=seed, latency_s=latency, mean_final_error=error.mean().item(),
+            mean_guess_error=guess_error.mean().item(),
+            f_error_mean=focal_error(params, scenes).mean().item(),
+            guess_f_error_mean=focal_error(guess, scenes).mean().item(),
+        ))
+    launches = dict(build.launch_counts)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the serve path never launched kernel {name}")
+    return network, dict(requests=requests, launches=launches)
+
+
+def small_input_reference(device):
+    """The network on 32 scenes (8 restarts, 5 iterations) on the card and
+    on the CPU (plain versions of both kernels): the guesses agree to 1e-4
+    normwise, and the solved estimates of at least 90% of the scenes agree
+    to 1e-3 (a Wolfe accept/reject decision that rounding flips sends an
+    element down another path; those stay few)."""
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+
+    scenes = generate_batch(torch.Generator("cpu").manual_seed(99), 32, SceneConfig(), device="cpu")
+    draws = torch.randn(32, SERVE_RESTARTS - 1, 45, generator=torch.Generator("cpu").manual_seed(98))
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        net = serve_network(dev, iterations=5)
+        pts, vis = scenes.projected_points.to(dev), scenes.visibility_mask.to(dev)
+        guess = net.guess(pts, vis)
+        solved = net(pts, vis, restart_draws=draws.to(dev))
+        out[dev.type] = (guess.cpu(), solved.cpu())
+    guess_check = check("small-input guess", out["cuda"][0], out["cpu"][0], 1e-4)
+    diff = (out["cuda"][1] - out["cpu"][1]).abs().amax(dim=1)
+    scale = out["cpu"][1].abs().amax(dim=1).clamp(min=1.0)
+    agree = (diff / scale <= 1e-3).float().mean().item()
+    if agree < 0.9:
+        raise AssertionError(f"small input: only {agree:.2%} of scenes agree with the CPU run")
+    return dict(guess=guess_check, scenes_agreeing=agree)
+
+
+def profile_phase(device):
+    """Where a request's time goes: torch.profiler over one request of
+    1,024 scenes (8 restarts) with the solve cut to 10 iterations (the
+    per-iteration work is the same as in the 100-iteration serve)."""
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+
+    network = serve_network(device, iterations=10)
+    scenes = generate_batch(torch.Generator(device).manual_seed(7), SERVE_SCENES, SceneConfig(), device=device)
+
+    def request():
+        network(scenes.projected_points, scenes.visibility_mask, generator=torch.Generator(device).manual_seed(8))
+        torch.cuda.synchronize()
+
+    request()  # warm-up
+    start = time.perf_counter()
+    request()
+    unprofiled = time.perf_counter() - start
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        request()
+        profiled = time.perf_counter() - start
+    rows = prof.key_averages()
+
+    def device_us(row):
+        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0.0)
+
+    total_device_s = sum(device_us(r) for r in rows) / 1e6
+    by_device = sorted(rows, key=device_us, reverse=True)[:8]
+    by_host = sorted(rows, key=lambda r: r.self_cpu_time_total, reverse=True)[:8]
+    atan2_calls = sum(r.count for r in rows if r.key == "aten::atan2")
+    return dict(
+        solver_iterations=10, wall_s=unprofiled, profiled_wall_s=profiled,
+        device_kernel_s=total_device_s if total_device_s > 0 else "not measured",
+        device_busy_share=total_device_s / profiled if total_device_s > 0 else "not measured",
+        # each plain-objective evaluation (a line-search probe round) calls
+        # atan2 once per view; the restart selection calls it once more
+        probe_rounds=(atan2_calls - 1) / M,
+        top_device=[dict(name=r.key[:80], ms=device_us(r) / 1e3, count=r.count) for r in by_device],
+        top_host_self=[dict(name=r.key[:80], ms=r.self_cpu_time_total / 1e3, count=r.count) for r in by_host],
+    )
+
+
+# ------------------------------------------------------------- bench ----
+
+
+def bench_phase(device):
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+    from davo_tpu_torch.ops import build, make_fused_calibration_objective
+    from davo_tpu_torch.solve import BFGSConfig, bfgs_solve
+
+    g = torch.Generator(device).manual_seed(0)
+    scenes = generate_batch(g, BENCH_BATCH, SceneConfig(num_views=M, num_points=N), device=device)
+    p = 3 + 3 * N + 6 * (M - 1)
+    guess = 0.1 * torch.randn(BENCH_BATCH, p, generator=g, device=device)
+    guess[:, 0] += 1.0
+    guess[:, 5 : 3 + 3 * N : 3] += 1.0
+    # bench.py's solver on the accelerator: never converging, Armijo
+    # backtracking capped at 6 probes, bfloat16 Hessian storage
+    config = BFGSConfig(
+        error_threshold=-1.0, iterations=BENCH_ITERATIONS, minimum_step=0.0,
+        line_search_iterations=BENCH_PROBES, line_search_method="backtracking", hessian_dtype="bfloat16",
+    )
+    error_fn, vg = make_fused_calibration_objective(scenes.projected_points, scenes.visibility_mask)
+    bfgs_solve(error_fn, guess, config, value_and_grad_fn=vg)  # warm-up
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    solved = bfgs_solve(error_fn, guess, config, value_and_grad_fn=vg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(build.launch_counts)
+    if launches != {"bfgs_update": BENCH_ITERATIONS, "calibration_value_and_grad": BENCH_ITERATIONS}:
+        raise AssertionError(f"bench-shape solve launched {launches}, expected {BENCH_ITERATIONS} of each")
+    final = error_fn(solved)
+    if not torch.isfinite(solved).all() or not final.mean() < error_fn(guess).mean():
+        raise AssertionError("bench-shape solve gave non-finite values or did not lower the error")
+    return dict(
+        batch=BENCH_BATCH, iterations=BENCH_ITERATIONS, seconds_per_solve=seconds,
+        bfgs_iterations_per_second=BENCH_BATCH * BENCH_ITERATIONS / seconds,
+        mean_final_error=final.mean().item(), launches=launches,
+    )
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.utils.precision import full_f32_matmuls
+
+    device = torch.device("cuda")
+    full_f32_matmuls()
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    emit("device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
+         cuda=torch.version.cuda, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    build.load_library()
+    emit("build", build_seconds=build.build_log.get("seconds"), ptxas=build.build_log.get("ptxas"),
+         seconds=time.perf_counter() - t0)
+
+    results = {}
+    for label, fn in (
+        ("k1_serve_f32", lambda: k1_phase(SERVE_SCENES * SERVE_RESTARTS, torch.float32, device)),
+        ("k1_bench_f32", lambda: k1_phase(BENCH_BATCH, torch.float32, device)),
+        ("k1_bench_bf16", lambda: k1_phase(BENCH_BATCH, torch.bfloat16, device)),
+        ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
+        ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
+    ):
+        t0 = time.perf_counter()
+        results[label] = fn()
+        emit(label, card=smi, **results[label], seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _, serve = serve_phase(device)
+    emit("serve", card=smi, scenes_per_request=SERVE_SCENES, restarts=SERVE_RESTARTS, **serve,
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("serve_small_input_reference", **small_input_reference(device), seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    emit("serve_profile", card=smi, **profile_phase(device), seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    emit("bench", card=smi, **bench_phase(device), seconds=time.perf_counter() - t0)
+
+    kernels = []
+    for name, label, source, replaces in (
+        ("K1 bfgs_update", "k1_serve_f32", "davo_tpu_torch/csrc/bfgs_update.cu",
+         "davo_tpu/ops/bfgs_update.py:112"),
+        ("K2 calibration_value_and_grad", "k2_serve", "davo_tpu_torch/csrc/calibration_obj.cu",
+         "davo_tpu/ops/calibration_obj.py:124"),
+    ):
+        r = results[label]
+        counter = "bfgs_update" if name.startswith("K1") else "calibration_value_and_grad"
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serve["launches"][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Kernels K1 and K2 on the card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
+The file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -o addopts= -m gpu
+
+(``--noconftest``: the suite's conftest configures JAX).  Tolerances,
+float32 on both sides, normwise (max |a - b| / max(1, max |b|)): K1 1e-4
+(bfloat16 H: 1e-2, one rounding of the stored H), K2 values 1e-5 and
+gradients 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from davo_tpu_torch.ops import build
+from davo_tpu_torch.ops import bfgs_update as k1
+from davo_tpu_torch.ops import calibration_obj as k2
+from tests.torch_port_helpers import cuda_device  # noqa: F401
+
+FLAGS = [(True, False), (False, True), (False, False)]
+
+
+def _normwise(actual, expected):
+    actual, expected = actual.float().cpu(), expected.float().cpu()
+    return float((actual - expected).abs().max() / max(1.0, float(expected.abs().max())))
+
+
+def _k1_inputs(b, p, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(b, p, p, generator=g) / p**0.5
+    h = torch.eye(p) + a @ a.transpose(1, 2)
+    s = 0.1 * torch.randn(b, p, generator=g)
+    c = torch.randn(b, p, p, generator=g) / p**0.5
+    y = torch.einsum("bij,bj->bi", torch.eye(p) + c @ c.transpose(1, 2), s)  # y.s > 0
+    y[: b // 10] = -s[: b // 10]  # y.s <= 0: update skipped
+    grad = torch.randn(b, p, generator=g)
+    updating = torch.rand(b, generator=g) > 0.3
+    return h.permute(1, 2, 0).contiguous(), s, y, grad, updating
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+def test_bfgs_update_kernel_matches_plain(cuda_device, h_dtype):
+    h_t, s, y, grad, updating = _k1_inputs(1000, 45)  # a ragged last block
+    h_t = h_t.to(h_dtype)
+    on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
+    for first, second in FLAGS:
+        before = build.launch_counts["bfgs_update"]
+        k_h, k_d = k1.fused_bfgs_update_direction(*on_card, first, second)
+        torch.cuda.synchronize()
+        assert build.launch_counts["bfgs_update"] == before + 1
+        p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= (1e-2 if h_dtype == torch.bfloat16 else 1e-4)
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    b, m, n = 1000, 4, 8  # a ragged last block
+    p = 3 + 3 * n + 6 * (m - 1)
+    params = 0.3 * rng.normal(size=(b, p))
+    params[:, 0] += rng.normal(size=b)
+    params[:, 5 : 3 + 3 * n : 3] += 1.0
+    params[:50, 3 + 3 * n + 3 * (m - 1) :] *= 1e-3  # the Taylor branches
+    u = rng.uniform(-1, 1, size=(m, n, b))
+    v = rng.uniform(-1, 1, size=(m, n, b))
+    vis = (rng.random((m, n, b)) > 0.2).astype(np.float64)
+    on_cpu = [torch.tensor(x, dtype=torch.float32) for x in (params, u, v, vis)]
+    before = build.launch_counts["calibration_value_and_grad"]
+    k_err, k_grad = k2.calibration_value_and_grad(*(x.to(cuda_device) for x in on_cpu))
+    torch.cuda.synchronize()
+    assert build.launch_counts["calibration_value_and_grad"] == before + 1
+    p_err, p_grad = k2.calibration_value_and_grad(*on_cpu)
+    assert _normwise(k_err, p_err) <= 1e-5
+    assert _normwise(k_grad, p_grad) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    h_t, s, y, grad, updating = (x.to(cuda_device) for x in _k1_inputs(64, 7))
+    with pytest.raises(ValueError):  # float64 H
+        k1.fused_bfgs_update_direction(h_t.double(), s, y, grad, updating, False, False)
+    x = torch.zeros(64, 24, device=cuda_device)  # (M, N) = (3, 3) is not compiled
+    obs = torch.zeros(3, 3, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        k2.calibration_value_and_grad(x, obs, obs, obs)
