@@ -10,6 +10,10 @@ Phases, each printed as one JSON line with its seconds:
             serve shape (B = 8192) and the bench shape (B = 16384): error
             against the stated tolerance, time by CUDA events, the least
             time the card could take (bound) and the share of it reached;
+   k3       the attention kernel against its plain version at the matcher's
+            shape (3,072 problems of 144 x 144, D = 64, C = 2) and on masked,
+            ragged inputs; its time beside the plain version's and beside
+            torch's scaled_dot_product_attention (timed only as a yardstick);
 4. serve    the v2_600 calibration network (transformer head, embed 256,
             6 layers, 8 heads) loaded from the JAX package's numpy checkpoint,
             answering 4 requests of 1,024 generated scenes with 8 restarts
@@ -17,14 +21,24 @@ Phases, each printed as one JSON line with its seconds:
             errors against ground truth, and the kernels' launch counts;
             plus the same network on a small input against the CPU run,
             and a torch.profiler breakdown of one (shortened) request;
-5. bench    one BFGS solve at bench.py's shape (B = 16384, 4 views x 8
+5. frontend_serve  learned-match window calibration: 2 requests of 1,024 VO
+            windows generated and rendered at 96 px on the card, the front end
+            (frontend_v4 weights, every gate off as it was validated: U-Net
+            detector, top-k anchors, attention matcher through K3) and the
+            window solver (vo_windows_transformer_v2_600, 8 restarts) on its
+            matches; latency split, match_inlier_rate, errors, launch counts;
+            then, outside the counted run, request 0's first 256 windows
+            solved on vo-eval's default front end (greedy NMS anchors) and on
+            oracle matches; plus 8 windows through the front end and a
+            5-iteration solve on the card against the CPU run;
+6. bench    one BFGS solve at bench.py's shape (B = 16384, 4 views x 8
             points, 20 iterations, backtracking capped at 6 probes);
-6. the kernels line, then the last line:
+7. the kernels line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Any mismatch beyond tolerance, a failed build or launch, or a kernel the
-main path never launched raises, and the script exits non-zero.  Without
-a card it exits non-zero before doing anything.
+Any mismatch beyond tolerance, a failed build or launch, or a kernel a
+path never launched raises, and the script exits non-zero.  Without a
+card it exits non-zero before doing anything.
 """
 
 import json
@@ -33,11 +47,13 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "calibration_transformer_v2_600.pkl")
+WINDOW_CHECKPOINT = os.path.join(REPO, "artifacts", "vo_windows_transformer_v2_600.pkl")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -46,6 +62,13 @@ PEAK_F32_OPS_PER_S = 67e12
 SERVE_SCENES, SERVE_RESTARTS, SERVE_REQUESTS = 1024, 8, 4
 BENCH_BATCH, BENCH_ITERATIONS, BENCH_PROBES = 16384, 20, 6
 M, N = 4, 8
+WINDOWS, WINDOW_REQUESTS, COMPARISON_WINDOWS = 1024, 2, 256
+# vo-eval's default front end (davo_tpu/cli.py: --nms-radius 0.1, every
+# other gate 0); the main path runs the front end as it was validated, top-k
+VO_EVAL_GATES = dict(nms_radius=0.1)
+# the matcher's attention at the served shape: the anchor's 12 x 12 cells
+# against each of the M - 1 other views' (96 px images, 64-wide embedding)
+K3_PROBLEMS, K3_CELLS, K3_DEPTH, K3_WIDTH = (M - 1) * WINDOWS, 144, 64, 2
 
 
 def emit(phase, **fields):
@@ -193,19 +216,98 @@ def k2_phase(batch, device):
     )
 
 
+# ---------------------------------------------------------------- K3 ----
+
+
+def k3_inputs(b, q_len, kv_len, d, c, device, seed, masked):
+    g = torch.Generator(device).manual_seed(seed)
+    q = torch.randn(b, q_len, d, generator=g, device=device)
+    k = torch.randn(b, kv_len, d, generator=g, device=device)
+    v = torch.rand(b, kv_len, c, generator=g, device=device) * 2.0 - 1.0  # coordinates in [-1, 1]
+    mask = None
+    if masked:
+        mask = torch.rand(b, kv_len, generator=g, device=device) > 0.3
+        mask[0] = False  # problem 0: every row without a valid key
+    return q, k, v, mask
+
+
+def sdpa_ms(q, k, v):
+    """torch's scaled_dot_product_attention on the same inputs with a
+    boolean key mask (all keys valid, as on the matcher's path), under the
+    first backend that takes them; timed as a yardstick, never used by the
+    port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = q[:, None], k[:, None], v[:, None]  # (B, heads = 1, L, E): the fused backends want 4-D
+    mask = torch.ones(q.shape[0], 1, 1, k.shape[2], dtype=torch.bool, device=q.device)
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    for backend in backends:
+        try:
+            # a backend that refuses the inputs warns why, then raises
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel([backend]):
+            ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask), reps=20)
+        return ms, backend.name
+    return None, "none"
+
+
+def k3_phase(device):
+    from davo_tpu_torch.ops.attention import flash_match_attention, reference_flash_attention
+
+    checks, worst = {}, 0.0
+    cases = (
+        # the matcher's shape, unmasked as the path runs it
+        ("served", K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, False),
+        # random key masks, problem 0 fully masked, Q and K not multiples of 64
+        ("masked_ragged", 512, 100, 150, K3_DEPTH, K3_WIDTH, True),
+        ("masked_wide", 64, 37, 211, 100, 8, True),
+    )
+    for label, b, q_len, kv_len, d, c, masked in cases:
+        q, k, v, mask = k3_inputs(b, q_len, kv_len, d, c, device, seed=b + q_len, masked=masked)
+        got = flash_match_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        expected = reference_flash_attention(q, k, v, mask)
+        # float32 sums of D products and of the softmax weights in another order
+        checks[label] = check(f"K3 {label}", got, expected, 1e-5)
+        if masked:
+            if not bool(torch.all(got[0] == 0)):
+                raise AssertionError(f"K3 {label}: a row with no valid key is not exactly zero")
+            checks[label]["masked_rows_zero"] = True
+        worst = max(worst, checks[label]["max_abs_err"])
+    q, k, v, _ = k3_inputs(K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, device, seed=5, masked=False)
+    ms = cuda_ms(lambda: flash_match_attention(q, k, v), reps=50)
+    plain_ms = cuda_ms(lambda: reference_flash_attention(q, k, v), reps=10, warmup=1)
+    library_ms, library_backend = sdpa_ms(q, k, v)
+    b, ql, kl, d, c = K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH
+    bytes_moved = 4 * b * (ql * d + kl * d + kl * c + ql * c)
+    operations = b * (2 * ql * kl * d + 2 * ql * kl * c)
+    bound_ms, bound_by = bound(bytes_moved, operations)
+    return dict(
+        problems=b, queries=ql, keys=kl, depth=d, width=c, checks=checks, max_abs_err=worst,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        library_ms=library_ms, library_backend=library_backend,
+    )
+
+
 # ------------------------------------------------------------- serve ----
 
 
-def serve_network(device, **solver_overrides):
+def serve_network(device, checkpoint=CHECKPOINT, **solver_overrides):
     from davo_tpu_torch.models import load_calibration_network
     from davo_tpu_torch.solve import BFGSConfig
 
     # calibration_transformer_curriculum eval solver: strong Wolfe,
-    # 100 iterations, 50 probes, error threshold 1e-7
+    # 100 iterations, 50 probes, error threshold 1e-7; 8 restarts, error
+    # selection (the oracle serve's and vo-eval's window solver alike)
     solver = dict(error_threshold=1e-7, iterations=100, line_search_iterations=50)
     solver.update(solver_overrides)
     return load_calibration_network(
-        CHECKPOINT, device=device, num_views=M, num_points=N, hidden_size=256,
+        checkpoint, device=device, num_views=M, num_points=N, hidden_size=256,
         head="transformer", transformer_layers=6, transformer_heads=8,
         num_restarts=SERVE_RESTARTS, solver=BFGSConfig(**solver),
     )
@@ -248,8 +350,8 @@ def serve_phase(device):
             guess_f_error_mean=focal_error(guess, scenes).mean().item(),
         ))
     launches = dict(build.launch_counts)
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("bfgs_update", "calibration_value_and_grad"):
+        if launches[name] <= 0:
             raise AssertionError(f"the serve path never launched kernel {name}")
     return network, dict(requests=requests, launches=launches)
 
@@ -323,6 +425,164 @@ def profile_phase(device):
     )
 
 
+# ---------------------------------------------------- frontend serve ----
+
+
+def frontend_serve_phase(device):
+    """The learned-match window path, 2 requests; then, outside the counted
+    run, the comparison on request 0's windows."""
+    from davo_tpu_torch.data import VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.models import load_frontend
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import FrontendExperiment, frontend_eval_metrics, render_scene_batch
+
+    # the front end as it was trained and validated (every gate off: top-k
+    # anchor selection), where its log reads match_inlier_rate 0.971
+    frontend, render_config = load_frontend(device=device)
+    network = serve_network(device, checkpoint=WINDOW_CHECKPOINT)
+    experiment = FrontendExperiment(render=render_config)
+    torch.cuda.reset_peak_memory_stats()
+    requests, first = [], None
+    # the main path: every launch counter from 0 just before it
+    build.reset_launch_counts()
+    for seed in range(WINDOW_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        windows = generate_vo_window_batch(torch.Generator(device).manual_seed(seed), WINDOWS, VOWindowConfig(), device=device)
+        images = render_scene_batch(torch.Generator(device).manual_seed(1000 + seed), windows, render_config)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = frontend(images)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, error = network(
+            out.matches, out.match_visibility,
+            generator=torch.Generator(device).manual_seed(2000 + seed), return_error=True,
+        )
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        metrics = frontend_eval_metrics(out, windows, experiment)
+        if images.shape != (WINDOWS, M, render_config.image_size, render_config.image_size, 3):
+            raise AssertionError(f"request {seed}: images of shape {tuple(images.shape)}")
+        if params.shape != (WINDOWS, network.num_parameters) or not torch.isfinite(params).all():
+            raise AssertionError(f"request {seed}: bad solve output shape {tuple(params.shape)} or non-finite values")
+        inlier_rate = metrics["match_inlier_rate"].item()
+        if not inlier_rate >= 0.95:
+            raise AssertionError(f"request {seed}: match_inlier_rate {inlier_rate} is below 0.95")
+        requests.append(dict(
+            seed=seed, windows=WINDOWS, latency_s=t3 - t0, generate_render_s=t1 - t0, frontend_s=t2 - t1,
+            solve_s=t3 - t2, match_inlier_rate=inlier_rate, detection_loss=metrics["detection_loss"].item(),
+            score_loss=metrics["score_loss"].item(), match_loss=metrics["match_loss"].item(),
+            visible_match_share=out.match_visibility.float().mean().item(),
+            mean_final_error=error.mean().item(), f_error_mean=focal_error(params, windows).mean().item(),
+        ))
+        if first is None:
+            first = (windows, images, params, error)
+    # read just after the main path, before anything else launches a kernel
+    launches = dict(build.launch_counts)
+    for name in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the learned-match window path never launched kernel {name}")
+    return dict(
+        requests=requests, launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        subset_comparison=subset_comparison(device, network, experiment, *first),
+    )
+
+
+def subset_comparison(device, network, experiment, windows, images, params, error):
+    """Request 0's first 256 windows solved three ways (the same solver):
+    on the top-k learned matches (taken from the request), on vo-eval's
+    default front end (greedy NMS, radius 0.1; every other gate off) and
+    on the oracle matches.  The NMS front end's match_inlier_rate covers
+    all 1,024 windows."""
+    from davo_tpu_torch.models import load_frontend
+    from davo_tpu_torch.train import frontend_eval_metrics
+
+    sub = slice(0, COMPARISON_WINDOWS)
+    sub_windows = _subset(windows, sub)
+    nms_frontend, _ = load_frontend(device=device, **VO_EVAL_GATES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nms_out = nms_frontend(images)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nms_params, nms_error = network(
+        nms_out.matches[sub], nms_out.match_visibility[sub],
+        generator=torch.Generator(device).manual_seed(4000), return_error=True,
+    )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    oracle_params, oracle_error = network(
+        sub_windows.projected_points, sub_windows.visibility_mask,
+        generator=torch.Generator(device).manual_seed(3000), return_error=True,
+    )
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for label, p in (("nms", nms_params), ("oracle", oracle_params)):
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"subset comparison: the {label} solve gave non-finite values")
+    return dict(
+        windows=COMPARISON_WINDOWS, nms_gates=VO_EVAL_GATES,
+        nms_match_inlier_rate=frontend_eval_metrics(nms_out, windows, experiment)["match_inlier_rate"].item(),
+        nms_visible_match_share=nms_out.match_visibility.float().mean().item(),
+        nms_frontend_s=t1 - t0, nms_solve_s=t2 - t1, oracle_solve_s=t3 - t2,
+        topk_mean_final_error=error[sub].mean().item(),
+        topk_f_error_mean=focal_error(params[sub], sub_windows).mean().item(),
+        nms_mean_final_error=nms_error.mean().item(),
+        nms_f_error_mean=focal_error(nms_params, sub_windows).mean().item(),
+        oracle_mean_final_error=oracle_error.mean().item(),
+        oracle_f_error_mean=focal_error(oracle_params, sub_windows).mean().item(),
+    )
+
+
+def _subset(windows, sub):
+    return type(windows)(*(x[sub] for x in windows))
+
+
+def frontend_small_input_reference(device):
+    """8 windows (rendered on the CPU) through the front end on the card and
+    on the CPU: the selected anchor feature of at least 99% of the tracks
+    is the same and its coordinates agree to 1e-4; then a 5-iteration
+    solve (8 restarts, the same draws) of the CPU front end's matches on
+    both: at least 99% of the windows agree to 1e-3."""
+    from davo_tpu_torch.data import VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.models import load_frontend
+    from davo_tpu_torch.train import render_scene_batch
+
+    windows = generate_vo_window_batch(torch.Generator("cpu").manual_seed(77), 8, VOWindowConfig(), device="cpu")
+    _, render_config = load_frontend(device="cpu")
+    images = render_scene_batch(torch.Generator("cpu").manual_seed(78), windows, render_config)
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        frontend, _ = load_frontend(device=dev)
+        out = frontend(images.to(dev))
+        # the anchor cell each track selected: its view-0 coordinates are the
+        # anchor's own detection
+        d2 = ((out.matches[:, 0, :, None, :] - out.points[:, 0, None, :, :]) ** 2).sum(-1)
+        outs.append((out.matches.cpu(), out.match_visibility.cpu(), d2.argmin(-1).cpu()))
+    (card_matches, _, card_idx), (matches, vis, cpu_idx) = outs
+    same = card_idx == cpu_idx
+    track_share = same.float().mean().item()
+    if track_share < 0.99:
+        raise AssertionError(f"small input: only {track_share:.2%} of tracks selected the same feature as on the CPU")
+    coord_diff = (card_matches - matches).abs().amax(dim=(1, 3))[same].max().item()
+    if coord_diff > 1e-4:
+        raise AssertionError(f"small input: matched coordinates differ by {coord_diff} (tolerance 1e-4)")
+    draws = torch.randn(8, SERVE_RESTARTS - 1, 45, generator=torch.Generator("cpu").manual_seed(79))
+    solved = [
+        serve_network(dev, checkpoint=WINDOW_CHECKPOINT, iterations=5)(
+            matches.to(dev), vis.to(dev), restart_draws=draws.to(dev)
+        ).cpu()
+        for dev in (device, torch.device("cpu"))
+    ]
+    diff = (solved[0] - solved[1]).abs().amax(dim=1)
+    scale = solved[1].abs().amax(dim=1).clamp(min=1.0)
+    agree = (diff / scale <= 1e-3).float().mean().item()
+    if agree < 0.99:
+        raise AssertionError(f"small input: only {agree:.2%} of window solves agree with the CPU run")
+    return dict(tracks_same_selection=track_share, max_coordinate_diff=coord_diff, windows_agreeing=agree)
+
+
 # ------------------------------------------------------------- bench ----
 
 
@@ -352,7 +612,8 @@ def bench_phase(device):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = dict(build.launch_counts)
-    if launches != {"bfgs_update": BENCH_ITERATIONS, "calibration_value_and_grad": BENCH_ITERATIONS}:
+    if launches != {"bfgs_update": BENCH_ITERATIONS, "calibration_value_and_grad": BENCH_ITERATIONS,
+                    "match_attention": 0}:
         raise AssertionError(f"bench-shape solve launched {launches}, expected {BENCH_ITERATIONS} of each")
     final = error_fn(solved)
     if not torch.isfinite(solved).all() or not final.mean() < error_fn(guess).mean():
@@ -398,6 +659,7 @@ def main():
         ("k1_bench_bf16", lambda: k1_phase(BENCH_BATCH, torch.bfloat16, device)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
+        ("k3", lambda: k3_phase(device)),
     ):
         t0 = time.perf_counter()
         results[label] = fn()
@@ -415,20 +677,31 @@ def main():
     emit("serve_profile", card=smi, **profile_phase(device), seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    frontend_serve = frontend_serve_phase(device)
+    emit("frontend_serve", card=smi, restarts=SERVE_RESTARTS, **frontend_serve,
+         seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit("frontend_small_input_reference", **frontend_small_input_reference(device), seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     emit("bench", card=smi, **bench_phase(device), seconds=time.perf_counter() - t0)
 
+    # launches: the learned-match window path's own run (frontend_serve's
+    # requests, without its comparison), which drives all three kernels
     kernels = []
-    for name, label, source, replaces in (
-        ("K1 bfgs_update", "k1_serve_f32", "davo_tpu_torch/csrc/bfgs_update.cu",
+    for name, label, counter, source, replaces in (
+        ("K1 bfgs_update", "k1_serve_f32", "bfgs_update", "davo_tpu_torch/csrc/bfgs_update.cu",
          "davo_tpu/ops/bfgs_update.py:112"),
-        ("K2 calibration_value_and_grad", "k2_serve", "davo_tpu_torch/csrc/calibration_obj.cu",
-         "davo_tpu/ops/calibration_obj.py:124"),
+        ("K2 calibration_value_and_grad", "k2_serve", "calibration_value_and_grad",
+         "davo_tpu_torch/csrc/calibration_obj.cu", "davo_tpu/ops/calibration_obj.py:124"),
+        ("K3 flash_match_attention", "k3", "match_attention", "davo_tpu_torch/csrc/match_attention.cu",
+         "davo_tpu/ops/attention.py:126"),
     ):
         r = results[label]
-        counter = "bfgs_update" if name.startswith("K1") else "calibration_value_and_grad"
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serve["launches"][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=frontend_serve["launches"][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""Carry the JAX package's calibration-network weights into the port.
+"""Carry the JAX package's weights into the port.
 
 :func:`flax_to_state_dict` maps flax parameters (a nested dict of numpy
 arrays, as ``flax.serialization.to_state_dict`` or a numpy-only checkpoint
@@ -15,20 +15,45 @@ holds them) onto :class:`CalibrationNetwork`'s ``state_dict``:
 plain numpy (``calibration_transformer_300.pkl`` and ``_v2_600.pkl``) with
 an unpickler that admits numpy's array globals and nothing else, so it
 never imports JAX; a pickle of JAX arrays is refused with an error.
+
+:func:`frontend_state_dict` maps a flax ``VOFrontend``'s ``params`` and
+``batch_stats`` onto the port's :class:`VOFrontend` (convolution kernels
+``HWIO`` become ``OIHW``).  The front end's Orbax checkpoint is carried as
+numpy in ``davo_tpu_torch/weights/frontend_v4.npz`` (keys
+``params/detector/enc1_a/conv/kernel`` and so on, exported once from
+``artifacts/ckpt_frontend_v4`` and checked against it by the tests) with
+its ``frontend_config.json`` beside it as ``frontend_v4.json``;
+:func:`load_frontend` builds the module from them as the JAX package's
+``cli.py::_load_frontend_fn`` does.
 """
 
 from __future__ import annotations
 
+import json
 import pickle
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .calibration_network import CalibrationNetwork
+from davo_tpu_torch.data.rendering import RenderConfig
 
-__all__ = ["flax_to_state_dict", "load_numpy_checkpoint", "load_calibration_network"]
+from .calibration_network import CalibrationNetwork
+from .vo_frontend import VOFrontend
+
+__all__ = [
+    "flax_to_state_dict",
+    "load_numpy_checkpoint",
+    "load_calibration_network",
+    "FRONTEND_V4",
+    "load_frontend_npz",
+    "frontend_state_dict",
+    "load_frontend",
+]
+
+FRONTEND_V4 = Path(__file__).resolve().parents[1] / "weights" / "frontend_v4.npz"
+_CONV_BLOCKS = ("enc1_a", "enc1_b", "enc1_c", "enc2", "enc3", "enc4")
 
 _NUMPY_GLOBALS = {
     ("numpy", "ndarray"),
@@ -136,3 +161,80 @@ def load_calibration_network(
             state[key] = value
     network.load_state_dict(state, strict=True)
     return network
+
+
+def load_frontend_npz(path: Union[str, Path]) -> dict:
+    """The nested ``{"params": ..., "batch_stats": ...}`` tree of a front
+    end's ``.npz`` (keys are ``/``-joined flax paths)."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for name in data.files:
+            *parents, leaf = name.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[name]
+    return tree
+
+
+def _conv(prefix: str, conv: Mapping) -> Dict[str, np.ndarray]:
+    out = {f"{prefix}.weight": np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)}  # HWIO -> OIHW
+    if "bias" in conv:
+        out[f"{prefix}.bias"] = np.asarray(conv["bias"])
+    return out
+
+
+def frontend_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's :class:`VOFrontend` ``state_dict`` for a flax
+    ``VOFrontend``'s ``params`` and ``batch_stats``."""
+    det, stats = params["detector"], batch_stats["detector"]
+    sd: Dict[str, np.ndarray] = {}
+    for name in _CONV_BLOCKS:
+        pre = f"detector.{name}"
+        sd.update(_conv(f"{pre}.conv", det[name]["conv"]))
+        sd.update(_norm(f"{pre}.norm", det[name]["norm"]))
+        sd[f"{pre}.norm.running_mean"] = np.asarray(stats[name]["norm"]["mean"])
+        sd[f"{pre}.norm.running_var"] = np.asarray(stats[name]["norm"]["var"])
+    sd.update(_conv("detector.bottleneck", det["bottleneck"]))
+    for name in ("up1", "up2", "up3"):
+        sd.update(_conv(f"detector.{name}.upscale.smooth", det[name]["upscale"]["smooth"]))
+    sd.update(_conv("detector.point_head", det["point_head"]))
+    for name in ("query", "key"):
+        sd.update(_linear(f"matcher.{name}", params["matcher"][name]))
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def load_frontend(
+    path: Union[str, Path] = FRONTEND_V4,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+    default_points: int = 8,
+    image_size: int = 64,
+    dtype: torch.dtype = torch.float32,
+    **gates,
+) -> Tuple[VOFrontend, RenderConfig]:
+    """The front end and its :class:`RenderConfig` from a ``.npz`` of
+    weights and the ``frontend_config.json`` fields beside it (``.json``
+    of the same name): ``num_select`` (else ``default_points``),
+    ``descriptor_channels``, ``embedding_size`` and ``image_size``.
+    ``gates`` override the :class:`VOFrontend` verification-gate defaults."""
+    path = Path(path)
+    arch_path = path.with_suffix(".json")
+    arch = json.loads(arch_path.read_text()) if arch_path.exists() else {}
+    render_config = RenderConfig(image_size=arch.pop("image_size", image_size), dtype=dtype)
+    frontend = VOFrontend(
+        num_select=arch.get("num_select", default_points),
+        descriptor_channels=arch.get("descriptor_channels", 64),
+        embedding_size=arch.get("embedding_size", 64),
+        device=device,
+        dtype=dtype,
+        **gates,
+    )
+    tree = load_frontend_npz(path)
+    state = frontend_state_dict(tree["params"], tree.get("batch_stats", {}))
+    # BatchNorm's step counter has no flax counterpart; keep the module's own
+    for key, value in frontend.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            state[key] = value
+    frontend.load_state_dict(state, strict=True)
+    return frontend, render_config

@@ -37,12 +37,16 @@ __all__ = [
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "davo_tpu_torch"
-SOURCES = ("bfgs_update.cu", "calibration_obj.cu")
+SOURCES = ("bfgs_update.cu", "calibration_obj.cu", "match_attention.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset
-launch_counts: Dict[str, int] = {"bfgs_update": 0, "calibration_value_and_grad": 0}
+launch_counts: Dict[str, int] = {
+    "bfgs_update": 0,
+    "calibration_value_and_grad": 0,
+    "match_attention": 0,
+}
 
 _library: Optional[ctypes.CDLL] = None
 # what the last build printed: seconds, and the ptxas register/spill lines
@@ -55,6 +59,8 @@ _SIGNATURES = {
     "davo_bfgs_update_direction": [_P] * 7 + [_I] * 5 + [_P],
     # params, u, v, vis, err, grad, B, M, N, stream
     "davo_calibration_value_and_grad": [_P] * 6 + [_I] * 3 + [_P],
+    # query, key, value, mask (or null), out, B, Q, K, D, C, stream
+    "davo_match_attention": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

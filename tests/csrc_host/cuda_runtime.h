@@ -17,6 +17,12 @@ using std::min;
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
+// block-shared arrays: one copy that a block's threads share (blocks run in turn)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 struct dim3 {
   int x, y, z;
   dim3(int x_ = 1, int y_ = 1, int z_ = 1) : x(x_), y(y_), z(z_) {}

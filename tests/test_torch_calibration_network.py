@@ -143,13 +143,20 @@ def test_v2_600_head_matches_jax():
 
 
 def test_port_loads_weights_without_jax():
-    """The port, imported and loading the v2_600 checkpoint in a fresh
-    interpreter, pulls in no JAX, flax or davo_tpu module."""
+    """The port, imported and loading the v2_600 checkpoint and the front
+    end's weights in a fresh interpreter, pulls in no JAX, flax, optax or
+    davo_tpu module."""
     code = (
         "import sys\n"
-        "import davo_tpu_torch.models, davo_tpu_torch.solve, davo_tpu_torch.data\n"
+        "import davo_tpu_torch, davo_tpu_torch.models, davo_tpu_torch.solve, davo_tpu_torch.data\n"
+        "import davo_tpu_torch.ops, davo_tpu_torch.ops.attention, davo_tpu_torch.train\n"
+        "import davo_tpu_torch.models.detector, davo_tpu_torch.models.matcher\n"
+        "import davo_tpu_torch.models.vo_frontend, davo_tpu_torch.data.rendering\n"
+        "import davo_tpu_torch.data.vo_windows, davo_tpu_torch.train.frontend\n"
         f"ckpt = davo_tpu_torch.models.load_numpy_checkpoint({str(V2_600)!r})\n"
         "assert ckpt['params']['initial_estimator']['head']['kernel'].shape == (256, 45)\n"
+        "frontend, render = davo_tpu_torch.models.load_frontend(device='cpu')\n"
+        "assert render.image_size == 96 and frontend.num_select == 8\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'davo_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels K1 and K2, compiled for the host and held
+"""The CUDA sources of kernels K1, K2 and K3, compiled for the host and held
 against their plain PyTorch versions.
 
 ``nvcc`` and a card exist only on the GPU machine, so here each
@@ -14,7 +14,9 @@ arithmetic; what only the card can show (the device compiler, timing) is
 
 Tolerances, float32 on both sides: K1 normwise 1e-4 (bfloat16 H: 1e-2,
 one rounding of the stored H), K2 values 1e-5 and gradients 1e-4
-normwise.
+normwise, K3 1e-5 normwise (float32 sums of D products and of the
+softmax weights in another order), with rows that have no valid key
+exactly zero.
 """
 
 import ctypes
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from davo_tpu_torch.ops.attention import reference_flash_attention
 from davo_tpu_torch.ops.bfgs_update import reference_update_direction
 from davo_tpu_torch.ops.build import CSRC, SOURCES
 from davo_tpu_torch.ops.calibration_obj import _value_and_grad_plain
@@ -63,6 +66,7 @@ def host_library(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.davo_bfgs_update_direction.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.davo_calibration_value_and_grad.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.davo_match_attention.argtypes = [p] * 5 + [i] * 5 + [p]
     return lib
 
 
@@ -141,3 +145,47 @@ def test_unsupported_scene_size_is_refused(host_library):
         *(buf.ctypes.data for _ in range(6)), 1, 3, 5, None
     )
     assert status != 0
+
+
+@pytest.mark.parametrize(
+    "b,q_len,kv_len,d,c,masked",
+    [
+        (2, 70, 90, 64, 2, True),  # ragged query tile, ragged key tile and chunk
+        (1, 20, 144, 40, 3, False),  # D padded to 64 in registers, C to 8
+        (2, 9, 33, 16, 2, True),  # D padded to 32
+        (1, 5, 17, 100, 8, True),  # D padded to 128
+    ],
+)
+def test_match_attention_source(host_library, b, q_len, kv_len, d, c, masked):
+    rng = np.random.default_rng(q_len * kv_len + d)
+    q = rng.normal(size=(b, q_len, d)).astype(np.float32)
+    k = rng.normal(size=(b, kv_len, d)).astype(np.float32)
+    v = rng.normal(size=(b, kv_len, c)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = rng.random((b, kv_len)) > 0.3
+        mask[0, :] = False  # problem 0: every row without a valid key
+    out = np.full((b, q_len, c), np.nan, np.float32)
+    mask_u8 = None if mask is None else np.ascontiguousarray(mask.astype(np.uint8))
+    status = host_library.davo_match_attention(
+        q.ctypes.data, k.ctypes.data, v.ctypes.data,
+        None if mask_u8 is None else mask_u8.ctypes.data, out.ctypes.data,
+        b, q_len, kv_len, d, c, None,
+    )
+    assert status == 0
+    ref = reference_flash_attention(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), None if mask is None else torch.tensor(mask)
+    ).numpy()
+    assert _normwise(out, ref) <= 1e-5
+    if masked:
+        assert np.all(out[0] == 0.0)
+
+
+def test_match_attention_refuses_unsupported_widths(host_library):
+    buf = np.zeros(64, np.float32)
+    for d, c in ((129, 2), (64, 9), (0, 2)):
+        status = host_library.davo_match_attention(
+            buf.ctypes.data, buf.ctypes.data, buf.ctypes.data, None, buf.ctypes.data,
+            1, 2, 2, d, c, None,
+        )
+        assert status != 0

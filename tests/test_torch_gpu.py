@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card, against their plain PyTorch versions.
+"""Kernels K1, K2 and K3 on the card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -8,7 +8,7 @@ The file imports no JAX, so it also runs where JAX is not installed:
 (``--noconftest``: the suite's conftest configures JAX).  Tolerances,
 float32 on both sides, normwise (max |a - b| / max(1, max |b|)): K1 1e-4
 (bfloat16 H: 1e-2, one rounding of the stored H), K2 values 1e-5 and
-gradients 1e-4.
+gradients 1e-4, K3 1e-5 with rows that have no valid key exactly zero.
 """
 
 import numpy as np
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from davo_tpu_torch.ops import build
+from davo_tpu_torch.ops import attention as k3
 from davo_tpu_torch.ops import bfgs_update as k1
 from davo_tpu_torch.ops import calibration_obj as k2
 from tests.torch_port_helpers import cuda_device  # noqa: F401
@@ -88,3 +89,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     obs = torch.zeros(3, 3, 64, device=cuda_device)
     with pytest.raises(ValueError):
         k2.calibration_value_and_grad(x, obs, obs, obs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,q_len,kv_len,d,c", [(96, 144, 144, 64, 2), (5, 70, 90, 40, 3), (3, 9, 200, 100, 8)])
+def test_match_attention_kernel_matches_plain(cuda_device, b, q_len, kv_len, d, c):
+    g = torch.Generator().manual_seed(q_len + d)
+    q = torch.randn(b, q_len, d, generator=g)
+    k = torch.randn(b, kv_len, d, generator=g)
+    v = torch.randn(b, kv_len, c, generator=g)
+    mask = torch.rand(b, kv_len, generator=g) > 0.3
+    mask[0] = False  # problem 0: every row without a valid key
+    for m in (None, mask):
+        before = build.launch_counts["match_attention"]
+        got = k3.flash_match_attention(*(x.to(cuda_device) for x in (q, k, v)), None if m is None else m.to(cuda_device))
+        torch.cuda.synchronize()
+        assert build.launch_counts["match_attention"] == before + 1
+        expected = k3.flash_match_attention(q, k, v, m)
+        assert _normwise(got, expected) <= 1e-5
+        if m is not None:
+            assert bool(torch.all(got[0] == 0))
