@@ -14,9 +14,14 @@ Phases, each printed as one JSON line with its seconds:
             shape (3,072 problems of 144 x 144, D = 64, C = 2) and on masked,
             ragged inputs; its time beside the plain version's and beside
             torch's scaled_dot_product_attention (timed only as a yardstick);
+   k4       the value + directional derivative kernel against its plain
+            version at B = 16384 and 8192, with an element that sees nothing
+            and elements with f <= 0;
+   k1v      the K1' orderings (rowloop, rowloop2; 16 elements per block)
+            against their plain versions at B = 16384, as k1;
 4. serve    the v2_600 calibration network (transformer head, embed 256,
             6 layers, 8 heads) loaded from the JAX package's numpy checkpoint,
-            answering 4 requests of 1,024 generated scenes with 8 restarts
+            answering 2 requests of 1,024 generated scenes with 8 restarts
             each (8,192-element BFGS solves, strong Wolfe search); latency,
             errors against ground truth, and the kernels' launch counts;
             plus the same network on a small input against the CPU run,
@@ -33,12 +38,27 @@ Phases, each printed as one JSON line with its seconds:
             5-iteration solve on the card against the CPU run;
 6. bench    one BFGS solve at bench.py's shape (B = 16384, 4 views x 8
             points, 20 iterations, backtracking capped at 6 probes);
-7. the kernels line, then the last line:
+7. fused_objective  the entry points davo_tpu_torch.scripts.check_fused_objective
+            (K2 and K4 against torch autodiff of the plain objective) and
+            .time_fused_objective (K2, K4 and torch's value+grad and
+            value+dirderiv, slope-timed), their lines passed through;
+8. k1_tune  the entry point davo_tpu_torch.scripts.tune_bfgs_kernel: nine
+            cases of K1 and K1' (orderings, blocks, H type), each checked
+            against its plain version, then slope-timed;
+9. eval_v4  the eval entry (python -m davo_tpu_torch.cli eval) at the JAX
+            package's v4_1800 checkpoint (transformer head, embed 448, 10
+            layers, 8 heads), 8 restarts, one eval batch and four ATE
+            batches of 1,024 scenes; its JSON, the seconds per solve and the
+            comparison with artifacts/eval_v4_calib.log;
+10. the kernels line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any mismatch beyond tolerance, a failed build or launch, or a kernel a
 path never launched raises, and the script exits non-zero.  Without a
-card it exits non-zero before doing anything.
+card it exits non-zero before doing anything.  Each path's launch counts
+are set to 0 just before it and read just after: K1, K2 and K3 from the
+learned-match window path, K4 from the fused-objective entry points, K1'
+from the tuning sweep.
 """
 
 import json
@@ -46,6 +66,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -54,12 +75,16 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "calibration_transformer_v2_600.pkl")
 WINDOW_CHECKPOINT = os.path.join(REPO, "artifacts", "vo_windows_transformer_v2_600.pkl")
+V4_CHECKPOINT = os.path.join(REPO, "artifacts", "calibration_transformer_v4_1800.pkl")
+V4_REFERENCE_LOG = os.path.join(REPO, "artifacts", "eval_v4_calib.log")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
-SERVE_SCENES, SERVE_RESTARTS, SERVE_REQUESTS = 1024, 8, 4
+# 2 serve requests: with the eval entry's five solves in the run, every
+# path fits in about half the time limit
+SERVE_SCENES, SERVE_RESTARTS, SERVE_REQUESTS = 1024, 8, 2
 BENCH_BATCH, BENCH_ITERATIONS, BENCH_PROBES = 16384, 20, 6
 M, N = 4, 8
 WINDOWS, WINDOW_REQUESTS, COMPARISON_WINDOWS = 1024, 2, 256
@@ -69,6 +94,18 @@ VO_EVAL_GATES = dict(nms_radius=0.1)
 # the matcher's attention at the served shape: the anchor's 12 x 12 cells
 # against each of the M - 1 other views' (96 px images, 64-wide embedding)
 K3_PROBLEMS, K3_CELLS, K3_DEPTH, K3_WIDTH = (M - 1) * WINDOWS, 144, 64, 2
+# the eval entry at v4_1800: the architecture read from the pickle (embed
+# 448, 10 layers, 8 heads of 56); one eval batch and the four ATE batches
+# of 1,024 scenes (five solves of 8,192 elements)
+EVAL_V4_ARGS = [
+    "eval", "--preset", "calibration_transformer_curriculum", "--hidden-size", "448",
+    "--transformer-layers", "10", "--transformer-heads", "8", "--restarts", "8",
+    "--batch-size", "1024", "--batches", "1",
+]
+EVAL_V4_SOLVES = 1 + 4
+# acceptance bands around the JAX package's figures (eval_v4_calib.log:
+# 256 scenes from other random draws)
+EVAL_V4_BANDS = {"ate_rmse_mean": (0.19, 0.28), "f_error_mean": (0.12, 0.20)}
 
 
 def emit(phase, **fields):
@@ -125,26 +162,29 @@ def k1_inputs(batch, p, h_dtype, device, seed):
     return h_t, s.contiguous(), y.contiguous(), grad.contiguous(), updating
 
 
-def k1_phase(batch, h_dtype, device):
+def k1_phase(batch, h_dtype, device, variant=None):
+    """K1, or with ``variant = (kernel, plain)`` one of the K1' orderings,
+    against its plain version and timed."""
     from davo_tpu_torch.ops.bfgs_update import fused_bfgs_update_direction, reference_update_direction
 
+    kernel, plain_version = variant or (fused_bfgs_update_direction, reference_update_direction)
     p = 3 + 3 * N + 6 * (M - 1)
     h_t, s, y, grad, updating = k1_inputs(batch, p, h_dtype, device, seed=batch)
     h_bm = h_t.permute(2, 0, 1).float()
 
     def plain(first, second):
-        h_out, d = reference_update_direction(h_bm, s, y, grad, updating, first, second)
+        h_out, d = plain_version(h_bm, s, y, grad, updating, first, second)
         return h_out.permute(1, 2, 0).to(h_dtype), d
 
     h_tol = 1e-2 if h_dtype == torch.bfloat16 else 1e-4  # bf16: one rounding of H+
     checks, worst = {}, 0.0
     for label, first, second in (("step1", True, False), ("step2", False, True), ("later", False, False)):
-        k_h, k_d = fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        k_h, k_d = kernel(h_t, s, y, grad, updating, first, second)
         torch.cuda.synchronize()
         p_h, p_d = plain(first, second)
         checks[label] = {"H": check(f"K1 {label} H", k_h, p_h, h_tol), "d": check(f"K1 {label} d", k_d, p_d, 1e-4)}
         worst = max(worst, checks[label]["H"]["max_abs_err"], checks[label]["d"]["max_abs_err"])
-    ms = cuda_ms(lambda: fused_bfgs_update_direction(h_t, s, y, grad, updating, False, False), reps=50)
+    ms = cuda_ms(lambda: kernel(h_t, s, y, grad, updating, False, False), reps=50)
     plain_ms = cuda_ms(lambda: plain(False, False), reps=10, warmup=1)
     # least traffic: H read once and written once; s, y, g read, d written,
     # the mask read; operations: Hy (2P^2), the update (6P^2), -H+ g (2P^2)
@@ -157,6 +197,16 @@ def k1_phase(batch, h_dtype, device):
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         library_ms=None,
     )
+
+
+def k1_variant(ordering):
+    """The K1' ordering's kernel (16 elements per block, the TPU sweep's
+    block_b 128) and its plain version."""
+    from davo_tpu_torch.ops import bfgs_update_variants as k1v
+
+    kernel = k1v.rowloop_update_direction if ordering == "rowloop" else k1v.rowloop2_update_direction
+    plain = k1v.reference_rowloop if ordering == "rowloop" else k1v.reference_rowloop2
+    return (lambda *args: kernel(*args, elements_per_block=16)), plain
 
 
 # ---------------------------------------------------------------- K2 ----
@@ -213,6 +263,49 @@ def k2_phase(batch, device):
         max_abs_err=max(checks["error"]["max_abs_err"], checks["gradient"]["max_abs_err"]),
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         library_ms=None, operations_per_element=k2_operations(M, N),
+    )
+
+
+# ---------------------------------------------------------------- K4 ----
+
+
+def k4_operations(m, n):
+    """Float32 operations of one element's value + directional derivative,
+    counted line by line from csrc/calibration_dirderiv.cu (as
+    k2_operations): a (view, point) term of view 1 costs 187 (forward 88,
+    tangent 99), a term of a rotated view 107 more (Rodrigues and its
+    tangent); each rotated view 75 for its trigonometric ratios, their
+    derivatives and tangents; the gauge rescale 4 per coordinate plus 20."""
+    return m * n * 187 + (m - 1) * n * 107 + (m - 1) * 75 + 4 * (3 * n + 3 * (m - 1)) + 20
+
+
+def k4_phase(batch, device):
+    from davo_tpu_torch.ops.calibration_obj import _value_and_dirderiv_plain, calibration_value_and_dirderiv
+
+    params, u, v, vis = k2_inputs(batch, device, seed=batch + 2)  # small angles, f <= 0 on 1/8
+    p = params.shape[1]
+    direction = torch.randn(batch, p, generator=torch.Generator(device).manual_seed(batch + 3), device=device)
+    vis[:, :, 0] = 0.0  # element 0 sees nothing
+    params[1, 0] = 0.0  # element 1: f = 0 exactly, the exp branch's edge
+    args = (params, direction, u, v, vis)
+    k_err, k_dphi = calibration_value_and_dirderiv(*args)
+    torch.cuda.synchronize()
+    p_err, p_dphi = _value_and_dirderiv_plain(*args)
+    # float32 sums of 32 angles (and of their tangents) in another order
+    checks = {"error": check("K4 error", k_err, p_err, 1e-5), "dphi": check("K4 dphi", k_dphi, p_dphi, 1e-4)}
+    if not (k_err[0].item() == 0.0 and k_dphi[0].item() == 0.0):
+        raise AssertionError(f"K4: an element that sees nothing gave {k_err[0].item()}, {k_dphi[0].item()}")
+    ms = cuda_ms(lambda: calibration_value_and_dirderiv(*args), reps=100)
+    plain_ms = cuda_ms(lambda: _value_and_dirderiv_plain(*args), reps=10, warmup=1)
+    # each element reads its parameters, direction and M N observations
+    # (u, v, vis) once and writes its error and dphi
+    bytes_moved = batch * 4 * (2 * p + 3 * M * N + 2)
+    operations = batch * k4_operations(M, N)
+    bound_ms, bound_by = bound(bytes_moved, operations)
+    return dict(
+        batch=batch, checks=checks, max_abs_err=max(checks["error"]["max_abs_err"], checks["dphi"]["max_abs_err"]),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        library_ms=None, operations_per_element=k4_operations(M, N),
     )
 
 
@@ -612,9 +705,10 @@ def bench_phase(device):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = dict(build.launch_counts)
-    if launches != {"bfgs_update": BENCH_ITERATIONS, "calibration_value_and_grad": BENCH_ITERATIONS,
-                    "match_attention": 0}:
-        raise AssertionError(f"bench-shape solve launched {launches}, expected {BENCH_ITERATIONS} of each")
+    expected = dict.fromkeys(launches, 0)
+    expected.update(bfgs_update=BENCH_ITERATIONS, calibration_value_and_grad=BENCH_ITERATIONS)
+    if launches != expected:
+        raise AssertionError(f"bench-shape solve launched {launches}, expected {expected}")
     final = error_fn(solved)
     if not torch.isfinite(solved).all() or not final.mean() < error_fn(guess).mean():
         raise AssertionError("bench-shape solve gave non-finite values or did not lower the error")
@@ -622,6 +716,93 @@ def bench_phase(device):
         batch=BENCH_BATCH, iterations=BENCH_ITERATIONS, seconds_per_solve=seconds,
         bfgs_iterations_per_second=BENCH_BATCH * BENCH_ITERATIONS / seconds,
         mean_final_error=final.mean().item(), launches=launches,
+    )
+
+
+# -------------------------------------------- entry points of K4, K1' ----
+
+
+def fused_objective_phase(device):
+    """The fused-objective entry points, counted from 0 just before them:
+    the check (K2 and K4 against torch autodiff of the plain objective,
+    which takes the exact atan2: differences are that approximation plus
+    float32 rounding, held to 1e-3 normwise) and the slope timing."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.scripts import check_fused_objective, time_fused_objective
+
+    build.reset_launch_counts()
+    checked = check_fused_objective.main(device)
+    timed = time_fused_objective.main(device)
+    launches = dict(build.launch_counts)
+    for name in ("calibration_value_and_grad", "calibration_value_and_dirderiv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the fused-objective entry points never launched kernel {name}")
+    k2_line, k4_line = checked
+    for label, diff, scale in (
+        ("K2 gradient", k2_line["max_abs_grad_diff"], max(1.0, k2_line["max_abs_grad"])),
+        ("K4 dphi", k4_line["max_abs_dphi_diff"], max(1.0, k4_line["max_abs_dphi"])),
+        ("K2 error", k2_line["max_abs_err_diff"], 1.0),
+        ("K4 error", k4_line["max_abs_err_diff"], 1.0),
+    ):
+        if not math.isfinite(diff) or diff / scale > 1e-3:
+            raise AssertionError(f"check_fused_objective: {label} differs by {diff} from torch autodiff")
+    for line in timed:
+        if not math.isfinite(line["ms_per_eval"]):
+            raise AssertionError(f"time_fused_objective: {line}")
+    by_label = {line["evaluation"]: line["ms_per_eval"] for line in timed}
+    return dict(
+        check=checked, time=timed, launches=launches,
+        k4_over_torch_dirderiv=by_label["K4 fused value+dirderiv"] / by_label["torch value+dirderiv"],
+        k2_over_torch_grad=by_label["K2 fused value+grad"] / by_label["torch value+grad"],
+    )
+
+
+def k1_tune_phase(device):
+    """The tuning sweep's entry point, counted from 0 just before it; it
+    checks every case against its plain version before timing it."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.scripts import tune_bfgs_kernel
+
+    build.reset_launch_counts()
+    cases = tune_bfgs_kernel.main(device)
+    launches = dict(build.launch_counts)
+    for name in ("bfgs_update", "bfgs_update_rowloop", "bfgs_update_rowloop2"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the tuning sweep never launched kernel {name}")
+    return dict(cases=cases, launches=launches)
+
+
+# ------------------------------------------------------------ eval v4 ----
+
+
+def eval_v4_phase(device):
+    """``python -m davo_tpu_torch.cli eval`` at the v4_1800 checkpoint (a
+    checkpoint directory holding it as checkpoint_1800.pkl), counted from
+    0 just before it; its figures beside the JAX package's log."""
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.ops import build
+
+    with open(V4_REFERENCE_LOG) as f:
+        reference = json.loads([line for line in f if line.startswith("{")][-1])
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        os.symlink(V4_CHECKPOINT, os.path.join(checkpoint_dir, "checkpoint_1800.pkl"))
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = cli.run(EVAL_V4_ARGS + ["--checkpoint-dir", checkpoint_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    launches = dict(build.launch_counts)
+    print(json.dumps(result), flush=True)  # what the CLI prints
+    for name in ("bfgs_update", "calibration_value_and_grad"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the eval entry never launched kernel {name}")
+    if not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"eval_v4: non-finite metrics {result}")
+    return dict(
+        result=result, launches=launches, seconds_per_solve=seconds / EVAL_V4_SOLVES, solves=EVAL_V4_SOLVES,
+        jax_reference=reference, jax_reference_source="artifacts/eval_v4_calib.log (256 scenes, jax.random draws)",
+        within_band={k: lo <= result[k] <= hi for k, (lo, hi) in EVAL_V4_BANDS.items()}, bands=EVAL_V4_BANDS,
     )
 
 
@@ -660,6 +841,10 @@ def main():
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
         ("k3", lambda: k3_phase(device)),
+        ("k4_bench", lambda: k4_phase(BENCH_BATCH, device)),
+        ("k4_serve", lambda: k4_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
+        ("k1v_rowloop", lambda: k1_phase(BENCH_BATCH, torch.float32, device, k1_variant("rowloop"))),
+        ("k1v_rowloop2", lambda: k1_phase(BENCH_BATCH, torch.float32, device, k1_variant("rowloop2"))),
     ):
         t0 = time.perf_counter()
         results[label] = fn()
@@ -687,21 +872,40 @@ def main():
     t0 = time.perf_counter()
     emit("bench", card=smi, **bench_phase(device), seconds=time.perf_counter() - t0)
 
-    # launches: the learned-match window path's own run (frontend_serve's
-    # requests, without its comparison), which drives all three kernels
+    paths = {"frontend_serve": frontend_serve}
+    for label, fn in (
+        ("fused_objective", lambda: fused_objective_phase(device)),
+        ("k1_tune", lambda: k1_tune_phase(device)),
+        ("eval_v4", lambda: eval_v4_phase(device)),
+    ):
+        t0 = time.perf_counter()
+        paths[label] = fn()
+        emit(label, card=smi, **paths[label], seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+
+    # launches: each kernel's count on the path that drives it, counted
+    # from 0 just before the path and read just after: K1-K3 on the
+    # learned-match window requests (without their comparison), K4 on the
+    # fused-objective entry points, K1' on the tuning sweep
     kernels = []
-    for name, label, counter, source, replaces in (
-        ("K1 bfgs_update", "k1_serve_f32", "bfgs_update", "davo_tpu_torch/csrc/bfgs_update.cu",
+    for name, label, path, counter, source, replaces in (
+        ("K1 bfgs_update", "k1_serve_f32", "frontend_serve", "bfgs_update", "davo_tpu_torch/csrc/bfgs_update.cu",
          "davo_tpu/ops/bfgs_update.py:112"),
-        ("K2 calibration_value_and_grad", "k2_serve", "calibration_value_and_grad",
+        ("K2 calibration_value_and_grad", "k2_serve", "frontend_serve", "calibration_value_and_grad",
          "davo_tpu_torch/csrc/calibration_obj.cu", "davo_tpu/ops/calibration_obj.py:124"),
-        ("K3 flash_match_attention", "k3", "match_attention", "davo_tpu_torch/csrc/match_attention.cu",
-         "davo_tpu/ops/attention.py:126"),
+        ("K3 flash_match_attention", "k3", "frontend_serve", "match_attention",
+         "davo_tpu_torch/csrc/match_attention.cu", "davo_tpu/ops/attention.py:126"),
+        ("K4 calibration_value_and_dirderiv", "k4_bench", "fused_objective", "calibration_value_and_dirderiv",
+         "davo_tpu_torch/csrc/calibration_dirderiv.cu", "davo_tpu/ops/calibration_obj.py:179"),
+        ("K1' rowloop", "k1v_rowloop", "k1_tune", "bfgs_update_rowloop",
+         "davo_tpu_torch/csrc/bfgs_update_variants.cu", "scripts/tune_bfgs_kernel.py:122"),
+        ("K1' rowloop2", "k1v_rowloop2", "k1_tune", "bfgs_update_rowloop2",
+         "davo_tpu_torch/csrc/bfgs_update_variants.cu", "scripts/tune_bfgs_kernel.py:122"),
     ):
         r = results[label]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=frontend_serve["launches"][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=paths[path]["launches"][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,124 @@
+"""Command-line entry of the port (the ``eval`` subcommand of
+``davo_tpu/cli.py``).
+
+    python -m davo_tpu_torch.cli eval --preset calibration_transformer_curriculum \\
+        --checkpoint-dir <dir holding checkpoint_<step>.pkl> \\
+        --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8
+
+``eval`` builds the preset's network (random weights from ``--seed``
+unless ``--checkpoint-dir`` names a checkpoint), solves ``--batches``
+batches of ``--batch-size`` scenes for the eval metrics and four more for
+the trajectory accuracy, and prints one JSON line: the mean eval metrics
+and ``ate_rmse_mean``, ``ate_rmse_median``, ``f_error_mean`` and
+``centre_error_mean``.  It runs on the card; ``--platform cpu`` selects the
+CPU.  Scenes are drawn by ``torch.Generator``s seeded from ``--seed``, not
+by ``jax.random``, so the figures match the JAX package's statistically.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from typing import Optional, Sequence
+
+import torch
+
+__all__ = ["main", "run"]
+
+_PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's common flags that ``eval`` reads."""
+    p.add_argument("--preset", default="calibration_from_oracle_matches")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
+    p.add_argument("--head", default=None, help="guess head: mlp | transformer")
+    p.add_argument("--hidden-size", type=int, default=None)
+    p.add_argument("--transformer-layers", type=int, default=None)
+    p.add_argument("--transformer-heads", type=int, default=None)
+    p.add_argument("--guess-tokens", type=int, default=None, help="transformer-head readout tokens")
+    p.add_argument("--solver", choices=("bfgs", "lbfgs"), default=None, help="in-forward solver")
+    p.add_argument("--lbfgs-history", type=int, default=None, help="L-BFGS memory m")
+
+
+def _apply_overrides(config, args):
+    updates = {}
+    for field in ("batch_size", "seed", "head", "hidden_size", "transformer_layers", "transformer_heads",
+                  "guess_tokens"):
+        value = getattr(args, field, None)
+        if value is not None:
+            updates[field] = value
+    if getattr(args, "solver", None) == "lbfgs":
+        raise NotImplementedError("--solver lbfgs: L-BFGS is not ported yet (ROADMAP.md Queue 1 item 4)")
+    return dataclasses.replace(config, **updates) if updates else config
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="davo_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    eval_p = sub.add_parser("eval", help="evaluate a trained checkpoint")
+    _add_common(eval_p)
+    eval_p.add_argument("--batches", type=int, default=16)
+    eval_p.add_argument("--restarts", type=int, default=None, help="multi-start eval solves")
+    eval_p.add_argument("--selection", default=None, help="restart selection: error | basin")
+    eval_p.add_argument("--restart-proposals", default=None, help="restart proposals: noise | permutation")
+    # read by basin selection only, which raises until it is ported
+    eval_p.add_argument(
+        "--basin-anchor", type=float, default=None, help="basin-score pull towards the guess focal (0 disables)"
+    )
+    return parser
+
+
+def run(argv: Optional[Sequence[str]] = None) -> dict:
+    """Parse ``argv`` and run the subcommand; returns what :func:`main`
+    prints."""
+    args = _build_parser().parse_args(argv)
+    from davo_tpu_torch.models import flax_to_state_dict
+    from davo_tpu_torch.train import (
+        batch_generator,
+        evaluate_calibration_ate,
+        get_preset,
+        make_eval_step,
+        restore_checkpoint,
+    )
+    from davo_tpu_torch.utils.device import resolve_device
+
+    if args.platform is not None and args.platform not in _PLATFORMS:
+        raise ValueError(f"--platform must be one of {sorted(_PLATFORMS)}, got {args.platform!r}")
+    device = resolve_device(None if args.platform is None else _PLATFORMS[args.platform])
+    config = _apply_overrides(get_preset(args.preset), args)
+    if args.restarts:
+        config = dataclasses.replace(config, num_restarts=args.restarts)
+    if args.selection:
+        config = dataclasses.replace(config, selection=args.selection)
+    if args.restart_proposals:
+        config = dataclasses.replace(config, restart_proposals=args.restart_proposals)
+    torch.manual_seed(config.seed)  # the weights' initialisation, without a checkpoint
+    # raises NotImplementedError for the selections and proposals still to port
+    network = config.build_network(device)
+    if args.checkpoint_dir:
+        restored = restore_checkpoint(args.checkpoint_dir)
+        state = flax_to_state_dict(restored["params"], restored.get("batch_stats"))
+        for key, value in network.state_dict().items():
+            if key.endswith("num_batches_tracked"):  # BatchNorm's counter has no flax counterpart
+                state[key] = value
+        network.load_state_dict(state, strict=True)
+    eval_step = make_eval_step(network, config)
+    metrics = [eval_step(batch_generator(device, config.seed, 1000 + i)) for i in range(args.batches)]
+    result = {k: float(torch.mean(torch.stack([m[k] for m in metrics]))) for k in metrics[0]}
+    result.update(evaluate_calibration_ate(network, config, config.seed, batches=4))
+    return result
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    print(json.dumps(run(argv)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,6 +5,8 @@ from .so3 import (
     axis_angle_from_quaternion,
     quaternion_from_matrix,
     rotate_vector_axis_angle,
+    skew_matrix,
+    so3_rotation_matrix,
 )
 
 __all__ = [
@@ -14,4 +16,6 @@ __all__ = [
     "axis_angle_from_quaternion",
     "quaternion_from_matrix",
     "rotate_vector_axis_angle",
+    "skew_matrix",
+    "so3_rotation_matrix",
 ]

@@ -6,7 +6,8 @@ Rodrigues' formula for an unnormalised axis ``w`` with ``s = |w|^2``:
 
 with the squared-angle ratios of :mod:`davo_tpu_torch.utils.stable_trig`,
 so values and derivatives are finite at the identity.  The matrix to
-axis-angle conversion serves the synthetic scene generator.
+axis-angle conversion serves the synthetic scene generator; the rotation
+matrix serves the trajectory metrics (:mod:`davo_tpu_torch.train.evaluation`).
 """
 
 from __future__ import annotations
@@ -16,11 +17,36 @@ import torch
 from davo_tpu_torch.utils.stable_trig import cos_from_sq, one_minus_cos_sq, sinc_sq
 
 __all__ = [
+    "skew_matrix",
+    "so3_rotation_matrix",
     "rotate_vector_axis_angle",
     "axis_angle_from_quaternion",
     "quaternion_from_matrix",
     "axis_angle_from_matrix",
 ]
+
+
+def skew_matrix(w: torch.Tensor) -> torch.Tensor:
+    """``[w]_x`` such that ``[w]_x v = w x v``; shape ``(..., 3, 3)``."""
+    x, y, z = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def so3_rotation_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """The rotation matrix ``R(w) = cos(x) I + f4 w w^T + f1 [w]_x``,
+    shape ``(..., 3, 3)``."""
+    s = torch.sum(torch.square(axis_angle), dim=-1, keepdim=True)[..., None]
+    eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
+    outer = axis_angle[..., :, None] * axis_angle[..., None, :]
+    return cos_from_sq(s) * eye + one_minus_cos_sq(s) * outer + sinc_sq(s) * skew_matrix(axis_angle)
 
 
 def rotate_vector_axis_angle(vector: torch.Tensor, axis_angle: torch.Tensor) -> torch.Tensor:

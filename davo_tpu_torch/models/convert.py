@@ -11,10 +11,14 @@ holds them) onto :class:`CalibrationNetwork`'s ``state_dict``:
 * ``LayerNorm`` and ``BatchNorm`` ``scale`` become ``weight``; BatchNorm's
   ``batch_stats`` ``mean``/``var`` become the running statistics.
 
-:func:`load_numpy_checkpoint` reads a checkpoint pickle whose arrays are
-plain numpy (``calibration_transformer_300.pkl`` and ``_v2_600.pkl``) with
-an unpickler that admits numpy's array globals and nothing else, so it
-never imports JAX; a pickle of JAX arrays is refused with an error.
+:func:`load_numpy_checkpoint` reads a checkpoint pickle with an unpickler
+that admits numpy's array globals and nothing else, so it never imports
+JAX.  The pickles of plain numpy arrays (``calibration_transformer_300.pkl``
+and ``_v2_600.pkl``) name only those; the pickles of JAX arrays
+(``_v3_1200.pkl``, ``_v4_1800.pkl``, ...) name one more global,
+``jax._src.array._reconstruct_array``, which is read as a numpy stand-in:
+it rebuilds the array from its numpy reconstructor and state, as JAX does
+before placing the array on a device.  Any other global is refused.
 
 :func:`frontend_state_dict` maps a flax ``VOFrontend``'s ``params`` and
 ``batch_stats`` onto the port's :class:`VOFrontend` (convolution kernels
@@ -65,8 +69,19 @@ _NUMPY_GLOBALS = {
 }
 
 
+def _reconstruct_array(fun, args, arr_state, aval_state):
+    """``jax._src.array._reconstruct_array`` without JAX: the numpy array
+    the JAX array was pickled from (its abstract-value state, such as
+    ``weak_type``, has no numpy counterpart and is dropped)."""
+    array = fun(*args)
+    array.__setstate__(arr_state)
+    return array
+
+
 class _NumpyOnlyUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _reconstruct_array
         if (module, name) not in _NUMPY_GLOBALS:
             raise pickle.UnpicklingError(
                 f"checkpoint references {module}.{name}; only numpy arrays can be "
@@ -82,7 +97,8 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
 
 
 def load_numpy_checkpoint(path: Union[str, Path]) -> dict:
-    """A checkpoint dict (``params``, ``batch_stats``, ...) of numpy arrays."""
+    """A checkpoint dict (``params``, ``batch_stats``, ...) of numpy arrays,
+    from a pickle of numpy or of JAX arrays."""
     with open(path, "rb") as f:
         return _NumpyOnlyUnpickler(f).load()
 

@@ -52,6 +52,33 @@ def reference_update_direction(
     return h_out, -torch.einsum("...ij,...j->...i", h_out, gradient)
 
 
+def channel_major_plain(plain, h_t, step, delta_gradient, gradient, updating, is_first, is_second):
+    """Run a batch-major plain version on a channel-major ``(P, P, B)``
+    carry: the carry goes to ``(B, P, P)`` in the vectors' type and comes
+    back in its storage type."""
+    h_bm = h_t.permute(2, 0, 1).to(step.dtype)
+    h_out, direction = plain(h_bm, step, delta_gradient, gradient, updating, is_first, is_second)
+    return h_out.permute(1, 2, 0).to(h_t.dtype).contiguous(), direction
+
+
+def check_kernel_inputs(h_t, step, delta_gradient, gradient, updating):
+    """Raise unless a K1 kernel takes these tensors; returns the mask,
+    contiguous."""
+    b, p = step.shape
+    if h_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {h_t.device}")
+    if h_t.dtype not in (torch.float32, torch.bfloat16) or not h_t.is_contiguous():
+        raise ValueError("H must be a contiguous float32 or bfloat16 tensor")
+    for name, x in (("step", step), ("delta_gradient", delta_gradient), ("gradient", gradient)):
+        if x.dtype != torch.float32 or x.device != h_t.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {h_t.device}")
+        if tuple(x.shape) != (b, p):
+            raise ValueError(f"{name} must have shape {(b, p)}, got {tuple(x.shape)}")
+    if updating.dtype != torch.bool or tuple(updating.shape) != (b,) or updating.device != h_t.device:
+        raise ValueError(f"updating must be a bool tensor of shape {(b,)} on {h_t.device}")
+    return updating.contiguous()
+
+
 def fused_bfgs_update_direction(
     h_t: torch.Tensor,
     step: torch.Tensor,
@@ -77,23 +104,10 @@ def fused_bfgs_update_direction(
     if tuple(h_t.shape) != (p, p, b):
         raise ValueError(f"expected H of shape {(p, p, b)}, got {tuple(h_t.shape)}")
     if h_t.device.type == "cpu":
-        h_bm = h_t.permute(2, 0, 1).to(step.dtype)
-        h_out, direction = reference_update_direction(
-            h_bm, step, delta_gradient, gradient, updating, is_first, is_second
+        return channel_major_plain(
+            reference_update_direction, h_t, step, delta_gradient, gradient, updating, is_first, is_second
         )
-        return h_out.permute(1, 2, 0).to(h_t.dtype).contiguous(), direction
-    if h_t.device.type != "cuda":
-        raise ValueError(f"unsupported device {h_t.device}")
-    if h_t.dtype not in (torch.float32, torch.bfloat16) or not h_t.is_contiguous():
-        raise ValueError("H must be a contiguous float32 or bfloat16 tensor")
-    for name, x in (("step", step), ("delta_gradient", delta_gradient), ("gradient", gradient)):
-        if x.dtype != torch.float32 or x.device != h_t.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {h_t.device}")
-        if tuple(x.shape) != (b, p):
-            raise ValueError(f"{name} must have shape {(b, p)}, got {tuple(x.shape)}")
-    if updating.dtype != torch.bool or tuple(updating.shape) != (b,) or updating.device != h_t.device:
-        raise ValueError(f"updating must be a bool tensor of shape {(b,)} on {h_t.device}")
-    updating = updating.contiguous()
+    updating = check_kernel_inputs(h_t, step, delta_gradient, gradient, updating)
     lib = build.load_library()
     h_out = torch.empty_like(h_t)
     direction = torch.empty(b, p, device=h_t.device, dtype=torch.float32)

@@ -37,14 +37,25 @@ __all__ = [
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "davo_tpu_torch"
-SOURCES = ("bfgs_update.cu", "calibration_obj.cu", "match_attention.cu")
+SOURCES = (
+    "bfgs_update.cu",
+    "bfgs_update_variants.cu",
+    "calibration_obj.cu",
+    "calibration_dirderiv.cu",
+    "match_attention.cu",
+)
+# headers the sources include (part of the build's hash)
+HEADERS = ("calibration_common.cuh",)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset
 launch_counts: Dict[str, int] = {
     "bfgs_update": 0,
+    "bfgs_update_rowloop": 0,
+    "bfgs_update_rowloop2": 0,
     "calibration_value_and_grad": 0,
+    "calibration_value_and_dirderiv": 0,
     "match_attention": 0,
 }
 
@@ -57,8 +68,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # h, h_out, s, y, g, updating, d, B, P, is_first, is_second, h_is_bf16, stream
     "davo_bfgs_update_direction": [_P] * 7 + [_I] * 5 + [_P],
+    # h, h_out, s, y, g, updating, d, B, P, is_first, is_second, h_is_bf16,
+    # scale_rows, elems_per_block, stream
+    "davo_bfgs_update_variant": [_P] * 7 + [_I] * 7 + [_P],
     # params, u, v, vis, err, grad, B, M, N, stream
     "davo_calibration_value_and_grad": [_P] * 6 + [_I] * 3 + [_P],
+    # params, direction, u, v, vis, err, dphi, B, M, N, stream
+    "davo_calibration_value_and_dirderiv": [_P] * 7 + [_I] * 3 + [_P],
     # query, key, value, mask (or null), out, B, Q, K, D, C, stream
     "davo_match_attention": [_P] * 5 + [_I] * 5 + [_P],
 }
@@ -85,7 +101,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,18 +1,21 @@
-"""Calibration objective value + gradient — kernel K2 and its plain version.
+"""Calibration objective value + gradient (kernel K2) and value +
+directional derivative (kernel K4), with their plain versions.
 
 The port of ``davo_tpu/ops/calibration_obj.py::calibration_value_and_grad``
-(Pallas kernel ``_vg_kernel``).  The TPU kernel takes its gradient from
-``jax.vjp`` at trace time; the CUDA kernel (``csrc/calibration_obj.cu``)
-writes the reverse pass of
+(Pallas kernel ``_vg_kernel``) and ``::calibration_value_and_dirderiv``
+(``_dirderiv_kernel``).  The TPU kernels take their derivatives from
+``jax.vjp`` and ``jax.jvp`` at trace time; the CUDA kernels
+(``csrc/calibration_obj.cu``, ``csrc/calibration_dirderiv.cu``) write the
+reverse pass and the tangent pass of
 :func:`davo_tpu_torch.camera.calibration_error_channel_major` with
-``approx_atan2=True`` out by hand.  :func:`_value_and_grad_plain` performs
-the same hand-derived reverse pass with tensor operations, so the
-derivation is testable on the CPU against ``jax.vjp`` and against
-``torch.autograd``.
+``approx_atan2=True`` out by hand.  :func:`_value_and_grad_plain` and
+:func:`_value_and_dirderiv_plain` perform the same hand-derived passes with
+tensor operations, so the derivations are testable on the CPU against
+``jax.vjp`` / ``jax.jvp`` and against ``torch.autograd`` / ``torch.func``.
 
-:func:`calibration_value_and_grad` launches the kernel for CUDA tensors
-and runs the plain version for CPU tensors; nothing else reaches the plain
-version.
+:func:`calibration_value_and_grad` and :func:`calibration_value_and_dirderiv`
+launch their kernels for CUDA tensors and run the plain versions for CPU
+tensors; nothing else reaches the plain versions.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from . import build
 
 __all__ = [
     "calibration_value_and_grad",
+    "calibration_value_and_dirderiv",
     "make_fused_calibration_objective",
     "SUPPORTED_SCENES",
 ]
@@ -215,6 +219,171 @@ def _value_and_grad_plain(parameters, u_t, v_t, vis_t):
     return total, grad_t.T.contiguous()
 
 
+def _max_tangent(x, floor, tangent):
+    """The tangent of ``max(x, floor)`` (constant ``floor``) as ``jax.jvp``
+    takes it: all of ``tangent`` above the floor, half at a tie, none below."""
+    return torch.where(
+        x > floor, tangent, torch.where(x == floor, 0.5 * tangent, torch.zeros_like(tangent))
+    )
+
+
+def _abs_tangent(x, tangent):
+    """The tangent of ``|x|`` as ``jax.jvp`` takes it: ``+tangent`` for
+    ``x >= 0`` (zero included), ``-tangent`` below."""
+    return torch.where(x >= 0.0, tangent, -tangent)
+
+
+def _cross(a, b):
+    """``a x b`` for ``(3, ...)`` component stacks (broadcasting)."""
+    return torch.stack(
+        [
+            a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0],
+        ]
+    )
+
+
+def _value_and_dirderiv_plain(parameters, direction, u_t, v_t, vis_t):
+    """Value and directional derivative of the channel-major objective
+    (polynomial atan2) by the hand-derived tangent pass of the CUDA kernel:
+    each intermediate carries its tangent along ``direction``; every
+    ``where`` branch takes the local partials of :func:`_value_and_grad_plain`
+    (:func:`_atan2_poly_and_partials`, :func:`_guarded_sqrt_and_half_inverse`,
+    the squared-angle ratios' derivative family), contracted with the
+    incoming tangent.  Clamps follow ``jax.jvp``: half the tangent at a tie
+    of ``max``, ``+tangent`` for ``|x|`` at ``x = 0``.  A norm at or below
+    its floor passes no tangent (where ``jax.jvp`` multiplies the 0 tangent
+    of ``sqrt(0)`` by its infinite slope and gives NaN).
+
+    :param parameters, direction: ``(B, P)``.
+    :param u_t, v_t, vis_t: ``(M, N, B)``.
+    :return: ``(error (B,), dphi (B,))``.
+    """
+    num_views, num_points = u_t.shape[0], u_t.shape[1]
+    pt, dt = parameters.T, direction.T
+    batch = pt.shape[-1]
+    points_end = 3 + 3 * num_points
+    trans_end = points_end + 3 * (num_views - 1)
+
+    def split(x):
+        return (
+            x[3:points_end].reshape(num_points, 3, batch).transpose(0, 1),  # (3, N, B)
+            x[points_end:trans_end].reshape(num_views - 1, 3, batch),
+            x[trans_end:].reshape(num_views - 1, 3, batch),
+        )
+
+    w, t, r = split(pt)
+    dw, d_t, dr = split(dt)
+    f, cx, cy = pt[0], pt[1], pt[2]
+    df, dcx, dcy = dt[0], dt[1], dt[2]
+
+    # ---- gauge rescale, in the objective's order of operations
+    points_scale = torch.mean(torch.abs(w[0]) + torch.abs(w[1]) + torch.abs(w[2]), dim=0) / 3.0
+    d_points_scale = torch.mean(
+        _abs_tangent(w[0], dw[0]) + _abs_tangent(w[1], dw[1]) + _abs_tangent(w[2], dw[2]), dim=0
+    ) / 3.0
+    camera_scale = torch.mean(torch.abs(t), dim=(0, 1))
+    d_camera_scale = torch.mean(_abs_tangent(t, d_t), dim=(0, 1))
+    overall = (points_scale * num_points + camera_scale * num_views) / (num_points + num_views)
+    d_overall = (d_points_scale * num_points + d_camera_scale * num_views) / (num_points + num_views)
+    inv_scale = 1.0 / torch.clamp(overall, min=1e-6)
+    d_inv_scale = -inv_scale * inv_scale * _max_tangent(overall, 1e-6, d_overall)
+    big_w = w * inv_scale  # (3, N, B)
+    d_big_w = dw * inv_scale + w * d_inv_scale
+
+    # ---- focal length elu(f) + 1 and the rays (u - cx, v - cy, f')
+    positive = f > 0.0
+    focal = torch.where(positive, f + 1.0, torch.exp(torch.where(positive, 0.0, f)))
+    d_focal = torch.where(positive, df, focal * df)
+    ray = torch.stack([u_t - cx, v_t - cy, focal.expand_as(u_t)])  # (3, M, N, B)
+    d_ray = torch.stack([(-dcx).expand_as(u_t), (-dcy).expand_as(u_t), d_focal.expand_as(u_t)])
+    rn = torch.sqrt(torch.sum(ray * ray, dim=0))
+    inv_rn = 1.0 / torch.clamp(rn, min=_NORM_FLOOR)
+    d_rn = torch.where(rn > 0.0, torch.sum(ray * d_ray, dim=0) / torch.where(rn > 0.0, rn, 1.0), 0.0)
+    d_inv_rn = -inv_rn * inv_rn * _max_tangent(rn, _NORM_FLOOR, d_rn)
+    a = ray * inv_rn
+    d_a = d_ray * inv_rn + ray * d_inv_rn
+
+    total = torch.zeros_like(f)
+    d_total = torch.zeros_like(f)
+    for m in range(num_views):
+        # ---- camera-relative points q (3, N, B) and their tangents
+        if m == 0:
+            q, dq = big_w, d_big_w
+        else:
+            o, do = r[m - 1][:, None], dr[m - 1][:, None]  # (3, 1, B)
+            big_t = t[m - 1][:, None] * inv_scale
+            d_big_t = d_t[m - 1][:, None] * inv_scale + t[m - 1][:, None] * d_inv_scale
+            s_ang = torch.sum(o * o, dim=0)  # (1, B)
+            d_s = 2.0 * torch.sum(o * do, dim=0)
+            f1 = sinc_sq(s_ang)
+            f4 = one_minus_cos_sq(s_ang)
+            d_f1 = 0.5 * cos_sin_sq(s_ang) * d_s
+            d_f4 = 0.5 * sin_cubed_sq(s_ang) * d_s
+            cos_t = 1.0 - s_ang * f4
+            d_cos = -(d_s * f4 + s_ang * d_f4)
+            dot = torch.sum(big_w * o, dim=0)  # (N, B)
+            d_dot = torch.sum(d_big_w * o + big_w * do, dim=0)
+            c = _cross(o, big_w)
+            d_c = _cross(do, big_w) + _cross(o, d_big_w)
+            q = big_w * cos_t + (f4 * dot) * o + c * f1 + big_t
+            dq = (
+                d_big_w * cos_t
+                + big_w * d_cos
+                + (d_f4 * dot + f4 * d_dot) * o
+                + (f4 * dot) * do
+                + d_c * f1
+                + c * d_f1
+                + d_big_t
+            )
+        qn = torch.sqrt(torch.sum(q * q, dim=0))  # (N, B)
+        inv_qn = 1.0 / torch.clamp(qn, min=_NORM_FLOOR)
+        d_qn = torch.where(qn > 0.0, torch.sum(q * dq, dim=0) / torch.where(qn > 0.0, qn, 1.0), 0.0)
+        d_inv_qn = -inv_qn * inv_qn * _max_tangent(qn, _NORM_FLOOR, d_qn)
+        bq = q * inv_qn
+        d_bq = dq * inv_qn + q * d_inv_qn
+        # ---- Kahan angle 2 atan2(|a - b|, |a + b|)
+        dm, sm = a[:, m] - bq, a[:, m] + bq
+        d_dm, d_sm = d_a[:, m] - d_bq, d_a[:, m] + d_bq
+        diff, half_inv_diff = _guarded_sqrt_and_half_inverse(torch.sum(dm * dm, dim=0))
+        summ, half_inv_summ = _guarded_sqrt_and_half_inverse(torch.sum(sm * sm, dim=0))
+        d_diff = half_inv_diff * 2.0 * torch.sum(dm * d_dm, dim=0)
+        d_summ = half_inv_summ * 2.0 * torch.sum(sm * d_sm, dim=0)
+        angle, p_diff, p_summ = _atan2_poly_and_partials(diff, summ)
+        weight = vis_t[m]
+        total = total + torch.sum(2.0 * angle * weight, dim=0)
+        d_total = d_total + torch.sum(2.0 * (p_diff * d_diff + p_summ * d_summ) * weight, dim=0)
+    return total, d_total
+
+
+def _check_kernel_inputs(tensors, u_t):
+    """Raise unless the CUDA kernels take these ``(name, tensor)`` pairs:
+    a compiled ``(M, N)``, ``(B, P)`` vectors and ``(M, N, B)``
+    observations, all contiguous float32 on one card."""
+    device = tensors[0][1].device
+    num_views, num_points, batch = u_t.shape
+    if (num_views, num_points) not in SUPPORTED_SCENES:
+        raise ValueError(
+            f"the CUDA kernel is compiled for (M, N) in {SUPPORTED_SCENES}, "
+            f"got {(num_views, num_points)}"
+        )
+    p = num_calibration_parameters(num_views, num_points)
+    for name, x in tensors:
+        if x.dtype != torch.float32 or x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {device}")
+        expected = (batch, p) if x.dim() == 2 else tuple(u_t.shape)
+        if tuple(x.shape) != expected:
+            raise ValueError(f"expected {name} of shape {expected}, got {tuple(x.shape)}")
+    return batch, p
+
+
+def _device_kind(parameters):
+    if parameters.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {parameters.device}")
+    return parameters.device.type
+
+
 def calibration_value_and_grad(
     parameters: torch.Tensor,
     u_t: torch.Tensor,
@@ -228,24 +397,11 @@ def calibration_value_and_grad(
     :param vis_t: ``(M, N, B)`` visibility as floats.
     :return: ``(error (B,), gradient (B, P))``.
     """
-    if parameters.device.type == "cpu":
+    if _device_kind(parameters) == "cpu":
         return _value_and_grad_plain(parameters, u_t, v_t, vis_t)
-    if parameters.device.type != "cuda":
-        raise ValueError(f"unsupported device {parameters.device}")
-    num_views, num_points, batch = u_t.shape
-    if (num_views, num_points) not in SUPPORTED_SCENES:
-        raise ValueError(
-            f"the CUDA kernel is compiled for (M, N) in {SUPPORTED_SCENES}, "
-            f"got {(num_views, num_points)}"
-        )
-    p = num_calibration_parameters(num_views, num_points)
-    if parameters.shape != (batch, p):
-        raise ValueError(f"expected parameters of shape {(batch, p)}, got {tuple(parameters.shape)}")
-    for name, x in (("parameters", parameters), ("u_t", u_t), ("v_t", v_t), ("vis_t", vis_t)):
-        if x.dtype != torch.float32 or x.device != parameters.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {parameters.device}")
-    if tuple(v_t.shape) != tuple(u_t.shape) or tuple(vis_t.shape) != tuple(u_t.shape):
-        raise ValueError("u_t, v_t and vis_t must share one (M, N, B) shape")
+    batch, p = _check_kernel_inputs(
+        [("parameters", parameters), ("u_t", u_t), ("v_t", v_t), ("vis_t", vis_t)], u_t
+    )
     lib = build.load_library()
     error = torch.empty(batch, device=parameters.device, dtype=torch.float32)
     gradient = torch.empty(batch, p, device=parameters.device, dtype=torch.float32)
@@ -257,13 +413,58 @@ def calibration_value_and_grad(
         error.data_ptr(),
         gradient.data_ptr(),
         batch,
-        num_views,
-        num_points,
+        u_t.shape[0],
+        u_t.shape[1],
         torch.cuda.current_stream(parameters.device).cuda_stream,
     )
     build.check_launch(status, "calibration_value_and_grad")
     build.launch_counts["calibration_value_and_grad"] += 1
     return error, gradient
+
+
+def calibration_value_and_dirderiv(
+    parameters: torch.Tensor,
+    direction: torch.Tensor,
+    u_t: torch.Tensor,
+    v_t: torch.Tensor,
+    vis_t: torch.Tensor,
+):
+    """Error and directional derivative along ``direction`` of the
+    calibration objective (kernel K4): one line-search probe in forward
+    mode.
+
+    :param parameters: ``(B, P)`` flat calibration vectors.
+    :param direction: ``(B, P)`` tangent (the search direction).
+    :param u_t, v_t: ``(M, N, B)`` observed pixel components (channel-major).
+    :param vis_t: ``(M, N, B)`` visibility as floats.
+    :return: ``(error (B,), dphi (B,))``.
+    """
+    if _device_kind(parameters) == "cpu":
+        return _value_and_dirderiv_plain(parameters, direction, u_t, v_t, vis_t)
+    batch, _ = _check_kernel_inputs(
+        [("parameters", parameters), ("direction", direction), ("u_t", u_t), ("v_t", v_t),
+         ("vis_t", vis_t)],
+        u_t,
+    )
+    lib = build.load_library()
+    error = torch.empty(batch, device=parameters.device, dtype=torch.float32)
+    dphi = torch.empty(batch, device=parameters.device, dtype=torch.float32)
+    status = lib.davo_calibration_value_and_dirderiv(
+        parameters.data_ptr(),
+        direction.data_ptr(),
+        u_t.data_ptr(),
+        v_t.data_ptr(),
+        vis_t.data_ptr(),
+        error.data_ptr(),
+        dphi.data_ptr(),
+        batch,
+        u_t.shape[0],
+        u_t.shape[1],
+        torch.cuda.current_stream(parameters.device).cuda_stream,
+    )
+    build.check_launch(status, "calibration_value_and_dirderiv")
+    build.launch_counts["calibration_value_and_dirderiv"] += 1
+    return error, dphi
 
 
 def make_fused_calibration_objective(

@@ -43,6 +43,7 @@ from tests.torch_port_helpers import torch_single_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 V2_600 = REPO / "artifacts" / "calibration_transformer_v2_600.pkl"
+V4_1800 = REPO / "artifacts" / "calibration_transformer_v4_1800.pkl"
 M, N = 4, 8
 P = 3 + 3 * N + 6 * (M - 1)
 SOLVER = dict(error_threshold=1e-7, iterations=10, line_search_iterations=50)
@@ -143,9 +144,9 @@ def test_v2_600_head_matches_jax():
 
 
 def test_port_loads_weights_without_jax():
-    """The port, imported and loading the v2_600 checkpoint and the front
-    end's weights in a fresh interpreter, pulls in no JAX, flax, optax or
-    davo_tpu module."""
+    """The port, imported and loading the v2_600 and v4_1800 checkpoints
+    and the front end's weights in a fresh interpreter, pulls in no JAX,
+    flax, optax or davo_tpu module."""
     code = (
         "import sys\n"
         "import davo_tpu_torch, davo_tpu_torch.models, davo_tpu_torch.solve, davo_tpu_torch.data\n"
@@ -153,8 +154,13 @@ def test_port_loads_weights_without_jax():
         "import davo_tpu_torch.models.detector, davo_tpu_torch.models.matcher\n"
         "import davo_tpu_torch.models.vo_frontend, davo_tpu_torch.data.rendering\n"
         "import davo_tpu_torch.data.vo_windows, davo_tpu_torch.train.frontend\n"
+        "import davo_tpu_torch.cli, davo_tpu_torch.train.calibration, davo_tpu_torch.ops.bfgs_update_variants\n"
+        "import davo_tpu_torch.scripts.check_fused_objective, davo_tpu_torch.scripts.time_fused_objective\n"
+        "import davo_tpu_torch.scripts.tune_bfgs_kernel\n"
         f"ckpt = davo_tpu_torch.models.load_numpy_checkpoint({str(V2_600)!r})\n"
         "assert ckpt['params']['initial_estimator']['head']['kernel'].shape == (256, 45)\n"
+        f"ckpt = davo_tpu_torch.models.load_numpy_checkpoint({str(V4_1800)!r})\n"
+        "assert ckpt['params']['initial_estimator']['head']['kernel'].shape == (448, 45)\n"
         "frontend, render = davo_tpu_torch.models.load_frontend(device='cpu')\n"
         "assert render.image_size == 96 and frontend.num_select == 8\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'davo_tpu')]\n"

@@ -1,5 +1,5 @@
-"""The CUDA sources of kernels K1, K2 and K3, compiled for the host and held
-against their plain PyTorch versions.
+"""The CUDA sources of kernels K1, K1′, K2, K3 and K4, compiled for the host
+and held against their plain PyTorch versions.
 
 ``nvcc`` and a card exist only on the GPU machine, so here each
 ``csrc/*.cu`` file is compiled by a C++20 host compiler against the stub
@@ -12,11 +12,11 @@ arithmetic; what only the card can show (the device compiler, timing) is
 ``kernel<<<grid, block, shared, stream>>>(args)`` to a call of the stub's
 ``emulate``.
 
-Tolerances, float32 on both sides: K1 normwise 1e-4 (bfloat16 H: 1e-2,
-one rounding of the stored H), K2 values 1e-5 and gradients 1e-4
-normwise, K3 1e-5 normwise (float32 sums of D products and of the
-softmax weights in another order), with rows that have no valid key
-exactly zero.
+Tolerances, float32 on both sides: K1 and K1′ normwise 1e-4 (bfloat16 H:
+1e-2, one rounding of the stored H), K2 values 1e-5 and gradients 1e-4
+normwise, K4 values 1e-5 and directional derivatives 1e-4 normwise, K3
+1e-5 normwise (float32 sums of D products and of the softmax weights in
+another order), with rows that have no valid key exactly zero.
 """
 
 import ctypes
@@ -31,8 +31,9 @@ import torch
 
 from davo_tpu_torch.ops.attention import reference_flash_attention
 from davo_tpu_torch.ops.bfgs_update import reference_update_direction
+from davo_tpu_torch.ops.bfgs_update_variants import reference_rowloop, reference_rowloop2
 from davo_tpu_torch.ops.build import CSRC, SOURCES
-from davo_tpu_torch.ops.calibration_obj import _value_and_grad_plain
+from davo_tpu_torch.ops.calibration_obj import _value_and_dirderiv_plain, _value_and_grad_plain
 from tests.torch_port_helpers import torch_single_thread  # noqa: F401
 
 STUBS = Path(__file__).resolve().parent / "csrc_host"
@@ -58,14 +59,16 @@ def host_library(tmp_path_factory):
         sources.append(str(path))
     library = work / "libhost_kernels.so"
     subprocess.run(
-        [compiler, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{STUBS}",
+        [compiler, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{STUBS}", f"-I{CSRC}",
          "-Wno-unknown-pragmas", *sources, "-o", str(library)],
         check=True, capture_output=True, text=True, timeout=300,
     )
     lib = ctypes.CDLL(str(library))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.davo_bfgs_update_direction.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.davo_bfgs_update_variant.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.davo_calibration_value_and_grad.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.davo_calibration_value_and_dirderiv.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.davo_match_attention.argtypes = [p] * 5 + [i] * 5 + [p]
     return lib
 
@@ -74,11 +77,8 @@ def _normwise(actual, expected):
     return float(np.max(np.abs(actual - expected)) / max(1.0, float(np.max(np.abs(expected)))))
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
-def test_bfgs_update_source(host_library, bf16, first, second):
+def _k1_problem(b, p):
     rng = np.random.default_rng(0)
-    b, p = 200, 45  # 7 blocks of 32 elements, the last one ragged
     a = rng.normal(size=(b, p, p)) / np.sqrt(p)
     h = np.eye(p) + a @ a.transpose(0, 2, 1)
     s = 0.1 * rng.normal(size=(b, p))
@@ -88,6 +88,13 @@ def test_bfgs_update_source(host_library, bf16, first, second):
     g = rng.normal(size=(b, p))
     upd = rng.random(b) > 0.3
     s, y, g = (np.ascontiguousarray(x, dtype=np.float32) for x in (s, y, g))
+    return h, s, y, g, upd
+
+
+def _run_k1_source(launch, h, s, y, g, upd, bf16, plain, first, second):
+    """Launch a K1-shaped entry point on the host and hold H+ and d
+    against ``plain`` (batch-major) on the same float32 inputs."""
+    b, p = s.shape
     h_t = torch.tensor(h, dtype=torch.float32).permute(1, 2, 0).contiguous()
     if bf16:
         h_t = h_t.to(torch.bfloat16)
@@ -95,12 +102,12 @@ def test_bfgs_update_source(host_library, bf16, first, second):
     h_out = np.empty_like(h_in)
     d = np.empty((b, p), np.float32)
     mask = upd.astype(np.uint8)
-    status = host_library.davo_bfgs_update_direction(
+    status = launch(
         h_in.ctypes.data, h_out.ctypes.data, s.ctypes.data, y.ctypes.data, g.ctypes.data,
-        mask.ctypes.data, d.ctypes.data, b, p, int(first), int(second), int(bf16), None,
+        mask.ctypes.data, d.ctypes.data, b, p, int(first), int(second), int(bf16),
     )
     assert status == 0
-    ref_h, ref_d = reference_update_direction(
+    ref_h, ref_d = plain(
         h_t.permute(2, 0, 1).float(), torch.tensor(s), torch.tensor(y), torch.tensor(g),
         torch.tensor(upd), first, second,
     )
@@ -110,8 +117,40 @@ def test_bfgs_update_source(host_library, bf16, first, second):
     assert _normwise(d, ref_d.numpy()) <= 1e-4
 
 
-@pytest.mark.parametrize("seed", [1, 2])
-def test_calibration_value_and_grad_source(host_library, seed):
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
+def test_bfgs_update_source(host_library, bf16, first, second):
+    b, p = 200, 45  # 7 blocks of 32 elements, the last one ragged
+    _run_k1_source(
+        lambda *args: host_library.davo_bfgs_update_direction(*args, None),
+        *_k1_problem(b, p), bf16, reference_update_direction, first, second,
+    )
+
+
+@pytest.mark.parametrize(
+    "scale_rows,elems,bf16",
+    [(True, 16, False), (False, 16, False), (False, 32, True), (True, 64, True), (False, 64, False)],
+)
+@pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
+def test_bfgs_update_variant_source(host_library, scale_rows, elems, bf16, first, second):
+    b, p = 100, 45  # a ragged last block at every block size
+    plain = reference_rowloop if scale_rows else reference_rowloop2
+    _run_k1_source(
+        lambda *args: host_library.davo_bfgs_update_variant(*args, int(scale_rows), elems, None),
+        *_k1_problem(b, p), bf16, plain, first, second,
+    )
+
+
+def test_bfgs_update_variant_refuses_unsupported(host_library):
+    buf = np.zeros(64, np.float32)
+    for p, elems in ((49, 16), (45, 8)):
+        status = host_library.davo_bfgs_update_variant(
+            *(buf.ctypes.data for _ in range(7)), 1, p, 0, 0, 0, 0, elems, None
+        )
+        assert status != 0
+
+
+def _objective_problem(seed):
     rng = np.random.default_rng(seed)
     m, n = 4, 8
     b = 300  # 3 blocks of 128, the last one ragged
@@ -126,7 +165,14 @@ def test_calibration_value_and_grad_source(host_library, seed):
     u = rng.uniform(-1, 1, size=(m, n, b))
     v = rng.uniform(-1, 1, size=(m, n, b))
     vis = (rng.random((m, n, b)) > 0.2).astype(np.float64)
-    params, u, v, vis = (np.ascontiguousarray(x, dtype=np.float32) for x in (params, u, v, vis))
+    direction = rng.normal(size=(b, p))
+    return tuple(np.ascontiguousarray(x, dtype=np.float32) for x in (params, u, v, vis, direction))
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_calibration_value_and_grad_source(host_library, seed):
+    params, u, v, vis, _ = _objective_problem(seed)
+    (m, n, b), p = u.shape, params.shape[1]
     err = np.empty(b, np.float32)
     grad = np.empty((b, p), np.float32)
     status = host_library.davo_calibration_value_and_grad(
@@ -139,10 +185,30 @@ def test_calibration_value_and_grad_source(host_library, seed):
     assert _normwise(grad, ref_grad.numpy()) <= 1e-4
 
 
+@pytest.mark.parametrize("seed", [1, 2])
+def test_calibration_value_and_dirderiv_source(host_library, seed):
+    params, u, v, vis, direction = _objective_problem(seed)
+    (m, n, b) = u.shape
+    err = np.empty(b, np.float32)
+    dphi = np.empty(b, np.float32)
+    status = host_library.davo_calibration_value_and_dirderiv(
+        params.ctypes.data, direction.ctypes.data, u.ctypes.data, v.ctypes.data, vis.ctypes.data,
+        err.ctypes.data, dphi.ctypes.data, b, m, n, None,
+    )
+    assert status == 0
+    ref_err, ref_dphi = _value_and_dirderiv_plain(*(torch.tensor(x) for x in (params, direction, u, v, vis)))
+    assert _normwise(err, ref_err.numpy()) <= 1e-5
+    assert _normwise(dphi, ref_dphi.numpy()) <= 1e-4
+
+
 def test_unsupported_scene_size_is_refused(host_library):
     buf = np.zeros(64, np.float32)
     status = host_library.davo_calibration_value_and_grad(
         *(buf.ctypes.data for _ in range(6)), 1, 3, 5, None
+    )
+    assert status != 0
+    status = host_library.davo_calibration_value_and_dirderiv(
+        *(buf.ctypes.data for _ in range(7)), 1, 3, 5, None
     )
     assert status != 0
 

@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K3 on the card, against their plain PyTorch versions.
+"""Kernels K1, K1′, K2, K3 and K4 on the card, against their plain PyTorch
+versions.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -8,7 +9,8 @@ The file imports no JAX, so it also runs where JAX is not installed:
 (``--noconftest``: the suite's conftest configures JAX).  Tolerances,
 float32 on both sides, normwise (max |a - b| / max(1, max |b|)): K1 1e-4
 (bfloat16 H: 1e-2, one rounding of the stored H), K2 values 1e-5 and
-gradients 1e-4, K3 1e-5 with rows that have no valid key exactly zero.
+gradients 1e-4, K3 1e-5 with rows that have no valid key exactly zero, K1′
+as K1, K4 values 1e-5 and directional derivatives 1e-4.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from davo_tpu_torch.ops import build
 from davo_tpu_torch.ops import attention as k3
 from davo_tpu_torch.ops import bfgs_update as k1
+from davo_tpu_torch.ops import bfgs_update_variants as k1v
 from davo_tpu_torch.ops import calibration_obj as k2
 from tests.torch_port_helpers import cuda_device  # noqa: F401
 
@@ -59,9 +62,26 @@ def test_bfgs_update_kernel_matches_plain(cuda_device, h_dtype):
 
 
 @pytest.mark.gpu
-def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("ordering", [k1v.rowloop_update_direction, k1v.rowloop2_update_direction])
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("elements_per_block", k1v.ELEMENTS_PER_BLOCK)
+def test_bfgs_update_variant_kernel_matches_plain(cuda_device, ordering, h_dtype, elements_per_block):
+    h_t, s, y, grad, updating = _k1_inputs(1000, 45)  # a ragged last block
+    h_t = h_t.to(h_dtype)
+    on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
+    name = "bfgs_update_rowloop" if ordering is k1v.rowloop_update_direction else "bfgs_update_rowloop2"
+    for first, second in FLAGS:
+        before = build.launch_counts[name]
+        k_h, k_d = ordering(*on_card, first, second, elements_per_block=elements_per_block)
+        torch.cuda.synchronize()
+        assert build.launch_counts[name] == before + 1
+        p_h, p_d = ordering(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= (1e-2 if h_dtype == torch.bfloat16 else 1e-4)
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+def _objective_inputs(b, m=4, n=8):
     rng = np.random.default_rng(1)
-    b, m, n = 1000, 4, 8  # a ragged last block
     p = 3 + 3 * n + 6 * (m - 1)
     params = 0.3 * rng.normal(size=(b, p))
     params[:, 0] += rng.normal(size=b)
@@ -70,7 +90,15 @@ def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
     u = rng.uniform(-1, 1, size=(m, n, b))
     v = rng.uniform(-1, 1, size=(m, n, b))
     vis = (rng.random((m, n, b)) > 0.2).astype(np.float64)
-    on_cpu = [torch.tensor(x, dtype=torch.float32) for x in (params, u, v, vis)]
+    vis[:, :, 7] = 0.0  # an element with nothing visible
+    direction = rng.normal(size=(b, p))
+    return [torch.tensor(x, dtype=torch.float32) for x in (params, u, v, vis, direction)]
+
+
+@pytest.mark.gpu
+def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
+    params, u, v, vis, _ = _objective_inputs(1000)  # a ragged last block
+    on_cpu = [params, u, v, vis]
     before = build.launch_counts["calibration_value_and_grad"]
     k_err, k_grad = k2.calibration_value_and_grad(*(x.to(cuda_device) for x in on_cpu))
     torch.cuda.synchronize()
@@ -81,14 +109,32 @@ def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+def test_calibration_value_and_dirderiv_kernel_matches_plain(cuda_device):
+    params, u, v, vis, direction = _objective_inputs(1000)  # a ragged last block
+    on_cpu = [params, direction, u, v, vis]
+    before = build.launch_counts["calibration_value_and_dirderiv"]
+    k_err, k_dphi = k2.calibration_value_and_dirderiv(*(x.to(cuda_device) for x in on_cpu))
+    torch.cuda.synchronize()
+    assert build.launch_counts["calibration_value_and_dirderiv"] == before + 1
+    p_err, p_dphi = k2.calibration_value_and_dirderiv(*on_cpu)
+    assert _normwise(k_err, p_err) <= 1e-5
+    assert _normwise(k_dphi, p_dphi) <= 1e-4
+    assert float(k_err[7]) == 0.0 and float(k_dphi[7]) == 0.0  # nothing visible
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     h_t, s, y, grad, updating = (x.to(cuda_device) for x in _k1_inputs(64, 7))
     with pytest.raises(ValueError):  # float64 H
         k1.fused_bfgs_update_direction(h_t.double(), s, y, grad, updating, False, False)
+    with pytest.raises(ValueError):  # 8 elements per block is not compiled
+        k1v.rowloop2_update_direction(h_t, s, y, grad, updating, False, False, elements_per_block=8)
     x = torch.zeros(64, 24, device=cuda_device)  # (M, N) = (3, 3) is not compiled
     obs = torch.zeros(3, 3, 64, device=cuda_device)
     with pytest.raises(ValueError):
         k2.calibration_value_and_grad(x, obs, obs, obs)
+    with pytest.raises(ValueError):
+        k2.calibration_value_and_dirderiv(x, x, obs, obs, obs)
 
 
 @pytest.mark.gpu
