@@ -5,11 +5,16 @@
 Phases, each printed as one JSON line with its seconds:
 
 1. device   the card's name, count and power limit (nvidia-smi);
-2. build    nvcc builds the port's CUDA kernels (ptxas register/spill lines);
+2. build    nvcc builds the port's CUDA kernels (ptxas's register, stack
+            and spill lines);
 3. k1, k2   each kernel against its plain PyTorch version on the card, at the
             serve shape (B = 8192) and the bench shape (B = 16384): error
-            against the stated tolerance, time by CUDA events, the least
-            time the card could take (bound) and the share of it reached;
+            against the stated tolerance, time by CUDA events (``ms``: the
+            wrapper's launches one by one from the host, as the solver makes
+            them; ``graph_ms``: the same launches replayed from a CUDA graph,
+            the card's time without the host's), the least time the card
+            could take (bound), the share of it reached (by ``ms``), and the
+            timed kernel's registers and spill bytes from ptxas;
    k3       the attention kernel against its plain version at the matcher's
             shape (3,072 problems of 144 x 144, D = 64, C = 2) and on masked,
             ragged inputs; its time beside the plain version's and beside
@@ -64,6 +69,7 @@ from the tuning sweep.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -126,6 +132,49 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_replay_ms(fn, reps, rounds=5):
+    """Mean milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``reps`` calls (``rounds`` replays, by CUDA events): the card's time
+    for the launches, without the host's time to enqueue each one."""
+    fn()  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * rounds)
+
+
+def ptxas_resources(lines, symbol):
+    """Registers and stack/spill bytes of each compiled kernel whose
+    mangled name holds ``symbol``, from ptxas's -v lines."""
+    found, current = [], None
+    for line in lines:
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = dict(function=entry.group(1)) if symbol in entry.group(1) else None
+            if current is not None:
+                found.append(current)
+        elif current is not None:
+            used = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if used:
+                current["registers"] = int(used.group(1))
+            if spill:
+                current.update(stack_bytes=int(spill.group(1)), spill_store_bytes=int(spill.group(2)),
+                               spill_load_bytes=int(spill.group(3)))
+    return found
+
+
 def check(name, actual, expected, tol):
     """Normwise relative error ``max|a - e| / max(1, max|e|)`` within tol."""
     diff = (actual.float() - expected.float()).abs().max().item()
@@ -162,12 +211,23 @@ def k1_inputs(batch, p, h_dtype, device, seed):
     return h_t, s.contiguous(), y.contiguous(), grad.contiguous(), updating
 
 
+def k1_symbol(h_dtype, variant_symbol=None):
+    """The mangled-name fragment of the kernel a K1 phase times at P = 45
+    and an even batch: K1's register route (one float32 element or a
+    bfloat16 pair a thread), or the K1' instantiation ``variant_symbol``."""
+    type_code = "13__nv_bfloat16" if h_dtype == torch.bfloat16 else "f"
+    if variant_symbol:
+        return f"{variant_symbol}{type_code}E"
+    return f"bfgs_update_rows_kernelI{type_code}Li{2 if h_dtype == torch.bfloat16 else 1}E"
+
+
 def k1_phase(batch, h_dtype, device, variant=None):
-    """K1, or with ``variant = (kernel, plain)`` one of the K1' orderings,
-    against its plain version and timed."""
+    """K1, or with ``variant = (kernel, plain, symbol)`` one of the K1'
+    orderings, against its plain version and timed."""
+    from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.bfgs_update import fused_bfgs_update_direction, reference_update_direction
 
-    kernel, plain_version = variant or (fused_bfgs_update_direction, reference_update_direction)
+    kernel, plain_version, symbol = variant or (fused_bfgs_update_direction, reference_update_direction, None)
     p = 3 + 3 * N + 6 * (M - 1)
     h_t, s, y, grad, updating = k1_inputs(batch, p, h_dtype, device, seed=batch)
     h_bm = h_t.permute(2, 0, 1).float()
@@ -184,7 +244,10 @@ def k1_phase(batch, h_dtype, device, variant=None):
         p_h, p_d = plain(first, second)
         checks[label] = {"H": check(f"K1 {label} H", k_h, p_h, h_tol), "d": check(f"K1 {label} d", k_d, p_d, 1e-4)}
         worst = max(worst, checks[label]["H"]["max_abs_err"], checks[label]["d"]["max_abs_err"])
+    # H exceeds the L2 at every served shape but bfloat16 at B = 8192, so the
+    # repeats find it cold
     ms = cuda_ms(lambda: kernel(h_t, s, y, grad, updating, False, False), reps=50)
+    graph_ms = graph_replay_ms(lambda: kernel(h_t, s, y, grad, updating, False, False), reps=50)
     plain_ms = cuda_ms(lambda: plain(False, False), reps=10, warmup=1)
     # least traffic: H read once and written once; s, y, g read, d written,
     # the mask read; operations: Hy (2P^2), the update (6P^2), -H+ g (2P^2)
@@ -194,8 +257,9 @@ def k1_phase(batch, h_dtype, device, variant=None):
     bound_ms, bound_by = bound(bytes_moved, operations)
     return dict(
         batch=batch, h_dtype=str(h_dtype).replace("torch.", ""), checks=checks, max_abs_err=worst,
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-        library_ms=None,
+        ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / ms, GBps=bytes_moved / ms / 1e6, library_ms=None,
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), k1_symbol(h_dtype, symbol)),
     )
 
 
@@ -206,7 +270,8 @@ def k1_variant(ordering):
 
     kernel = k1v.rowloop_update_direction if ordering == "rowloop" else k1v.rowloop2_update_direction
     plain = k1v.reference_rowloop if ordering == "rowloop" else k1v.reference_rowloop2
-    return (lambda *args: kernel(*args, elements_per_block=16)), plain
+    symbol = f"bfgs_variant_kernelILb{int(ordering == 'rowloop')}ELi16E"
+    return (lambda *args: kernel(*args, elements_per_block=16)), plain, symbol
 
 
 # ---------------------------------------------------------------- K2 ----
@@ -244,6 +309,7 @@ def k2_inputs(batch, device, seed):
 
 
 def k2_phase(batch, device):
+    from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.calibration_obj import _value_and_grad_plain, calibration_value_and_grad
 
     params, u, v, vis = k2_inputs(batch, device, seed=batch + 1)
@@ -252,7 +318,9 @@ def k2_phase(batch, device):
     p_err, p_grad = _value_and_grad_plain(params, u, v, vis)
     # float32 sums of 32 angles / gradient terms in another order
     checks = {"error": check("K2 error", k_err, p_err, 1e-5), "gradient": check("K2 gradient", k_grad, p_grad, 1e-4)}
+    # the inputs (6 MB at B = 8192) stay in the L2 across the repeats: warm
     ms = cuda_ms(lambda: calibration_value_and_grad(params, u, v, vis), reps=100)
+    graph_ms = graph_replay_ms(lambda: calibration_value_and_grad(params, u, v, vis), reps=100)
     plain_ms = cuda_ms(lambda: _value_and_grad_plain(params, u, v, vis), reps=10, warmup=1)
     p = params.shape[1]
     bytes_moved = batch * 4 * (p + 3 * M * N + 1 + p)
@@ -261,8 +329,9 @@ def k2_phase(batch, device):
     return dict(
         batch=batch, checks=checks,
         max_abs_err=max(checks["error"]["max_abs_err"], checks["gradient"]["max_abs_err"]),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-        library_ms=None, operations_per_element=k2_operations(M, N),
+        ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / ms, library_ms=None, operations_per_element=k2_operations(M, N),
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), f"calibration_vg_kernelILi{M}ELi{N}E"),
     )
 
 
@@ -296,6 +365,7 @@ def k4_phase(batch, device):
     if not (k_err[0].item() == 0.0 and k_dphi[0].item() == 0.0):
         raise AssertionError(f"K4: an element that sees nothing gave {k_err[0].item()}, {k_dphi[0].item()}")
     ms = cuda_ms(lambda: calibration_value_and_dirderiv(*args), reps=100)
+    graph_ms = graph_replay_ms(lambda: calibration_value_and_dirderiv(*args), reps=100)
     plain_ms = cuda_ms(lambda: _value_and_dirderiv_plain(*args), reps=10, warmup=1)
     # each element reads its parameters, direction and M N observations
     # (u, v, vis) once and writes its error and dphi
@@ -304,7 +374,7 @@ def k4_phase(batch, device):
     bound_ms, bound_by = bound(bytes_moved, operations)
     return dict(
         batch=batch, checks=checks, max_abs_err=max(checks["error"]["max_abs_err"], checks["dphi"]["max_abs_err"]),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         library_ms=None, operations_per_element=k4_operations(M, N),
     )
 
@@ -374,6 +444,7 @@ def k3_phase(device):
         worst = max(worst, checks[label]["max_abs_err"])
     q, k, v, _ = k3_inputs(K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, device, seed=5, masked=False)
     ms = cuda_ms(lambda: flash_match_attention(q, k, v), reps=50)
+    graph_ms = graph_replay_ms(lambda: flash_match_attention(q, k, v), reps=50)
     plain_ms = cuda_ms(lambda: reference_flash_attention(q, k, v), reps=10, warmup=1)
     library_ms, library_backend = sdpa_ms(q, k, v)
     b, ql, kl, d, c = K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH
@@ -382,7 +453,7 @@ def k3_phase(device):
     bound_ms, bound_by = bound(bytes_moved, operations)
     return dict(
         problems=b, queries=ql, keys=kl, depth=d, width=c, checks=checks, max_abs_err=worst,
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         library_ms=library_ms, library_backend=library_backend,
     )
 

@@ -34,7 +34,8 @@
 //
 // What bounds it: device-memory bytes, as K1: H read once and written once
 // plus s, y, g read and d written, (2 P^2 sizeof(H) + 16 P) B bytes.  Like
-// K1 this kernel reads H twice, the second time from L2 where it fits.
+// K1's two-pass route this kernel reads H twice, the second time from L2
+// where it fits (K1's register route reads it once).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -8,16 +8,12 @@
 // out by hand; the plain PyTorch version of the same derivation is
 // davo_tpu_torch/ops/calibration_obj.py::_value_and_grad_plain.
 //
-// Per batch element (one thread each): P = 3 + 3N + 6(M-1) parameters
-// (f, cx, cy | N world points | M-1 translations | M-1 axis-angles);
-// observations u, v, vis are channel-major (M, N, B).  The objective is a
-// sum over (view, point) terms, each depending on the parameters only
-// through the shared gauge scale, the focal length, the principal point,
-// one world point and one pose.  So the reverse pass of a term runs right
-// after its forward pass, while its intermediates are still in registers,
-// and accumulates into per-thread gradient registers; only the gauge
-// scale's chain (through |w| and |t|) is closed at the end.  Nothing is
-// stored between the two passes.
+// Per batch element: P = 3 + 3N + 6(M-1) parameters (f, cx, cy | N world
+// points | M-1 translations | M-1 axis-angles); observations u, v, vis
+// are channel-major (M, N, B).  The objective is a sum of M N (view,
+// point) terms, each depending on the parameters only through the shared
+// gauge scale, the focal length, the principal point, one world point and
+// one pose.
 //
 // Order of the forward pass (and, reversed, of the hand-written adjoint):
 //   gauge rescale  inv_scale = 1 / max(mean|coord|, 1e-6)
@@ -31,11 +27,36 @@
 // (parameters and observations) and writes ~184 (error and gradient), and
 // does ~8 k float32 operations (counted in chip_smoke.py::k2_operations):
 // at the card's published peaks (3.35 TB/s, 67 TFLOP/s float32) the bytes
-// take about twice as long as the operations.  One thread per element
-// keeps every intermediate in registers, at the cost of few threads in
-// flight (B of them), so this first version is latency-bound well above
-// either time.  Parameters and gradients are (B, P) batch-major, staged
-// through shared memory in a [P][kBlock] layout for coalesced access.
+// take about twice as long as the operations, 0.0018 ms at B = 8192.  At
+// the served batch the work is small enough that what the card can reach
+// is set by latency: the first port ran one thread per element (B threads,
+// 64 blocks at B = 8192, fewer than the 132 SMs), each a serial chain of
+// ~8 k operations.
+//
+// The design splits an element over a warp, one lane per (view m, point
+// n) term at M N = 32 (compiled for (4, 8)), so the card runs 32 B threads
+// and each chain is 1/32 as long:
+//   - a block takes kWarps = 8 consecutive elements (256 threads); it
+//     stages their parameters ((B, P) batch-major, 8 P contiguous floats)
+//     and their observations (per term 8 consecutive floats: whole 32-byte
+//     sectors) through shared memory with coalesced loads;
+//   - each lane runs its term's forward pass and, while the intermediates
+//     are in registers, its reverse pass; view 0 runs the same code with
+//     o = 0 and T = 0, which give q = W and g_W = g_q exactly;
+//   - the shared partials are reduced with xor-butterfly shuffles, a fixed
+//     order that leaves the same bits on every lane it spans: the error,
+//     g_focal, g_cx and g_cy over the warp; a point's gradient over the M
+//     lanes that share n; a pose's g_T, g_o, g_cos, g_f1 and g_f4 over the
+//     N lanes that share m; then the gauge's chain over the warp;
+//   - the gauge sums |w| and |t| are xor-butterfly sums too (lane l holds
+//     coordinate l), so every lane holds the same scale;
+//   - a lane's pose ratios take one sincosf and one sinf (pose_ratios), not
+//     the seven sines and cosines of the four helpers called apart.
+// Every lane of a block reaches every shuffle and barrier: the ragged last
+// block's idle warps run on zeros and write nothing.  At 64 registers a
+// lane four blocks fit an SM, so B = 8192 runs in two waves and the time
+// grows with B: the lanes' instruction streams (divisions, sines, shuffles),
+// not the bytes, set it.
 
 #include <cuda_runtime.h>
 
@@ -43,208 +64,230 @@
 
 namespace {
 
-constexpr int kBlock = 128;
+constexpr int kWarps = 8;  // elements a block, one warp each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kObsStride = kWarps + 1;  // [term][element] rows, padded: no bank conflicts
 
 __device__ __forceinline__ float signf(float x) { return (x > 0.f) - (x < 0.f); }
 
+// Sum of x over the lanes that differ from this one in bits [lo, hi):
+// xor butterfly, the same order (and the same bits) on every lane.
+template <int kLo, int kHi>
+__device__ __forceinline__ float lane_sum(float x) {
+#pragma unroll
+  for (int k = kLo; k < kHi; k <<= 1) x += __shfl_xor_sync(0xffffffffu, x, k);
+  return x;
+}
+
+// The four squared-angle ratios of one s (calibration_common.cuh): sinc_sq,
+// one_minus_cos_sq, cos_sin_sq and sin_cubed_sq, each by the helper's own
+// Taylor branch below its threshold and above it from one sincosf of
+// x = sqrt(s) and one sinf of x / 2, in the helpers' expressions.
+__device__ __forceinline__ void pose_ratios(float s, float& f1, float& f4, float& cs, float& sc3) {
+  if (s < kSmallSq) {
+    f1 = sinc_sq(s);
+    f4 = one_minus_cos_sq(s);
+    cs = cos_sin_sq(s);
+    sc3 = sin_cubed_sq(s);
+    return;
+  }
+  const float x = sqrtf(s);
+  float sx, cx;
+  sincosf(x, &sx, &cx);
+  const float h = sinf(0.5f * x);
+  f1 = sx / x;
+  f4 = 2.f * h * h / s;
+  cs = (cx - sx / x) / s;
+  sc3 = s < kSmallSqF3 ? sin_cubed_sq(s) : (sx / x - 4.f * h * h / s) / s;
+}
+
 template <int M, int N>
-__global__ void __launch_bounds__(kBlock) calibration_vg_kernel(
+__global__ void __launch_bounds__(kThreads) calibration_vg_kernel(
     const float* __restrict__ params, const float* __restrict__ u,
     const float* __restrict__ v, const float* __restrict__ vis, float* __restrict__ err,
     float* __restrict__ grad, int B) {
+  static_assert(M * N == 32 && (N & (N - 1)) == 0, "one lane per (view, point) term");
   constexpr int P = 3 + 3 * N + 6 * (M - 1);
   constexpr int kT = 3 + 3 * N;          // first translation
   constexpr int kR = kT + 3 * (M - 1);   // first rotation
-  __shared__ float tile[P * kBlock];
+  constexpr int kObs = 32 * kObsStride;  // one channel of observations
+  __shared__ float p_sh[kWarps * P];     // [element][P]
+  __shared__ float g_sh[kWarps * P];     // the gradient, [element][P]
+  __shared__ float obs_sh[3 * kObs];     // u, v, vis: [term][element]
 
   const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kBlock;
-  const int nb = min(kBlock, B - b0);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int b0 = blockIdx.x * kWarps;
+  const int nb = min(kWarps, B - b0);
   const size_t base = static_cast<size_t>(b0) * P;
-  for (int e = tid; e < nb * P; e += kBlock) {
-    const int el = e / P;
-    tile[(e - el * P) * kBlock + el] = params[base + e];
+  for (int k = tid; k < kWarps * P; k += kThreads) p_sh[k] = k < nb * P ? params[base + k] : 0.f;
+  for (int k = tid; k < 32 * kWarps; k += kThreads) {
+    const int term = k / kWarps;
+    const int el = k - term * kWarps;
+    const size_t idx = static_cast<size_t>(term) * B + b0 + el;
+    const bool in = el < nb;
+    obs_sh[term * kObsStride + el] = in ? u[idx] : 0.f;
+    obs_sh[kObs + term * kObsStride + el] = in ? v[idx] : 0.f;
+    obs_sh[2 * kObs + term * kObsStride + el] = in ? vis[idx] : 0.f;
   }
   __syncthreads();
 
-  if (tid < nb) {
-    const int b = b0 + tid;
-    float p[P], gp[P];
+  const float* pe = p_sh + warp * P;
+  const int m = lane / N;  // view
+  const int n = lane % N;  // point
+
+  // gauge rescale: lane l holds |coordinate l| of the points and of the
+  // translations, summed over the warp
+  const float abs_w = lane_sum<1, 32>(lane < 3 * N ? fabsf(pe[3 + lane]) : 0.f);
+  const float abs_t = lane_sum<1, 32>(lane < 3 * (M - 1) ? fabsf(pe[kT + lane]) : 0.f);
+  const float overall = (abs_w / (3.f * N) * N + abs_t / (3.f * (M - 1)) * M) / (N + M);
+  const float inv_scale = 1.f / fmaxf(overall, 1e-6f);
+
+  const float f = pe[0], cx = pe[1], cy = pe[2];
+  const float focal = f > 0.f ? f + 1.f : expf(f);
+  const float d_focal = f > 0.f ? 1.f : focal;
+
+  // this lane's pose (view 0: o = 0, T = 0) and point
+  float o[3] = {0.f, 0.f, 0.f}, t_raw[3] = {0.f, 0.f, 0.f}, T[3], w_raw[3], w[3];
+  if (m > 0) {
 #pragma unroll
-    for (int k = 0; k < P; ++k) {
-      p[k] = tile[k * kBlock + tid];
-      gp[k] = 0.f;
+    for (int i = 0; i < 3; ++i) {
+      o[i] = pe[kR + 3 * (m - 1) + i];
+      t_raw[i] = pe[kT + 3 * (m - 1) + i];
     }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    T[i] = t_raw[i] * inv_scale;
+    w_raw[i] = pe[3 + 3 * n + i];
+    w[i] = w_raw[i] * inv_scale;
+  }
+  const float s_ang = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
+  float f1, f4, cs_sq, sc3_sq;
+  pose_ratios(s_ang, f1, f4, cs_sq, sc3_sq);
+  const float cos_t = 1.f - s_ang * f4;
 
-    // gauge rescale
-    float abs_w = 0.f, abs_t = 0.f;
+  // ---- forward: camera-relative point q
+  const float dot = w[0] * o[0] + w[1] * o[1] + w[2] * o[2];
+  const float c[3] = {o[1] * w[2] - o[2] * w[1], o[2] * w[0] - o[0] * w[2],
+                      o[0] * w[1] - o[1] * w[0]};
+  float q[3];
 #pragma unroll
-    for (int k = 3; k < kT; ++k) abs_w += fabsf(p[k]);
+  for (int i = 0; i < 3; ++i) q[i] = w[i] * cos_t + f4 * dot * o[i] + c[i] * f1 + T[i];
+  const float qn = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
+  const float inv_qn = 1.f / fmaxf(qn, kNormFloor);
+  // ---- forward: unit ray a and unit point direction bq
+  const int obs = lane * kObsStride + warp;
+  const float r[3] = {obs_sh[obs] - cx, obs_sh[kObs + obs] - cy, focal};
+  const float weight = obs_sh[2 * kObs + obs];
+  const float rn = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
+  const float inv_rn = 1.f / fmaxf(rn, kNormFloor);
+  float a[3], bq[3], dm[3], sm[3];
 #pragma unroll
-    for (int k = kT; k < kR; ++k) abs_t += fabsf(p[k]);
-    const float overall = (abs_w / (3.f * N) * N + abs_t / (3.f * (M - 1)) * M) / (N + M);
-    const float inv_scale = 1.f / fmaxf(overall, 1e-6f);
+  for (int i = 0; i < 3; ++i) {
+    a[i] = r[i] * inv_rn;
+    bq[i] = q[i] * inv_qn;
+    dm[i] = a[i] - bq[i];
+    sm[i] = a[i] + bq[i];
+  }
+  const float d2 = dm[0] * dm[0] + dm[1] * dm[1] + dm[2] * dm[2];
+  const float s2 = sm[0] * sm[0] + sm[1] * sm[1] + sm[2] * sm[2];
+  const float diff = d2 > 0.f ? sqrtf(d2) : 0.f;
+  const float summ = s2 > 0.f ? sqrtf(s2) : 0.f;
+  float d_diff, d_summ;
+  const float angle = atan2_poly(diff, summ, d_diff, d_summ);
 
-    const float f = p[0], cx = p[1], cy = p[2];
-    const float focal = f > 0.f ? f + 1.f : expf(f);
-    const float d_focal = f > 0.f ? 1.f : focal;
+  // ---- reverse: theta -> |a - b|^2, |a + b|^2 (guarded sqrt)
+  const float g_d2 = d2 > 0.f ? weight * d_diff / diff : 0.f;  // 2 w d_diff / (2 diff)
+  const float g_s2 = s2 > 0.f ? weight * d_summ / summ : 0.f;
+  float g_a[3], g_b[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    g_a[i] = 2.f * (g_d2 * dm[i] + g_s2 * sm[i]);
+    g_b[i] = 2.f * (g_s2 * sm[i] - g_d2 * dm[i]);
+  }
+  // ---- reverse: normalisations (the max() passes the norm's gradient
+  // only above the floor)
+  const float ga_a = rn > kNormFloor ? g_a[0] * a[0] + g_a[1] * a[1] + g_a[2] * a[2] : 0.f;
+  const float gb_b = qn > kNormFloor ? g_b[0] * bq[0] + g_b[1] * bq[1] + g_b[2] * bq[2] : 0.f;
+  float g_q[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g_q[i] = inv_qn * (g_b[i] - bq[i] * gb_b);
+  // ---- reverse: Rodrigues (view 0: g_W = g_q; its pose terms unused)
+  const float gq_o = g_q[0] * o[0] + g_q[1] * o[1] + g_q[2] * o[2];
+  const float g_dot = f4 * gq_o;
+  float g_c[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g_c[i] = f1 * g_q[i];
+  // c = o x W:  dc.o -> W x g_c,  dc.W -> g_c x o
+  float g_w[3] = {g_q[0] * cos_t + g_dot * o[0] + (g_c[1] * o[2] - g_c[2] * o[1]),
+                  g_q[1] * cos_t + g_dot * o[1] + (g_c[2] * o[0] - g_c[0] * o[2]),
+                  g_q[2] * cos_t + g_dot * o[2] + (g_c[0] * o[1] - g_c[1] * o[0])};
+  // the pose's partials: g_o, g_T, then g_cos, g_f1, g_f4
+  float g_pose[9] = {f4 * dot * g_q[0] + g_dot * w[0] + (w[1] * g_c[2] - w[2] * g_c[1]),
+                     f4 * dot * g_q[1] + g_dot * w[1] + (w[2] * g_c[0] - w[0] * g_c[2]),
+                     f4 * dot * g_q[2] + g_dot * w[2] + (w[0] * g_c[1] - w[1] * g_c[0]),
+                     g_q[0], g_q[1], g_q[2],
+                     g_q[0] * w[0] + g_q[1] * w[1] + g_q[2] * w[2],
+                     g_q[0] * c[0] + g_q[1] * c[1] + g_q[2] * c[2],
+                     gq_o * dot};
 
-    // gp[3 + 3n + i] first accumulates the gradient w.r.t. the rescaled
-    // point W = w inv_scale; the rescale's chain is applied at the end
-    float g_inv_scale = 0.f, g_focal = 0.f, g_cx = 0.f, g_cy = 0.f, total = 0.f;
+  // ---- reductions: the element's sums over the warp, a point's over the
+  // M lanes that share n, a pose's over the N lanes that share m
+  const float total = lane_sum<1, 32>(2.f * angle * weight);
+  const float g_cx = lane_sum<1, 32>(-inv_rn * (g_a[0] - a[0] * ga_a));
+  const float g_cy = lane_sum<1, 32>(-inv_rn * (g_a[1] - a[1] * ga_a));
+  const float g_focal = lane_sum<1, 32>(inv_rn * (g_a[2] - a[2] * ga_a));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) g_w[i] = lane_sum<N, 32>(g_w[i]);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) g_pose[k] = lane_sum<1, N>(g_pose[k]);
 
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      float o[3] = {0.f, 0.f, 0.f}, T[3] = {0.f, 0.f, 0.f};
-      float s_ang = 0.f, cos_t = 1.f, f1 = 0.f, f4 = 0.f;
-      if (m > 0) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          o[i] = p[kR + 3 * (m - 1) + i];
-          T[i] = p[kT + 3 * (m - 1) + i] * inv_scale;
-        }
-        s_ang = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
-        f1 = sinc_sq(s_ang);
-        f4 = one_minus_cos_sq(s_ang);
-        cos_t = 1.f - s_ang * f4;
-      }
-      float g_cos = 0.f, g_f1 = 0.f, g_f4 = 0.f;
-      float g_o[3] = {0.f, 0.f, 0.f}, g_T[3] = {0.f, 0.f, 0.f};
+  // ---- reverse: the trigonometric ratios (cos = 1 - s f4(s);
+  // f4' = sin_cubed_sq / 2; f1' = cos_sin_sq / 2)
+  const float g_cos = g_pose[6], g_f1 = g_pose[7], g_f4 = g_pose[8];
+  const float g_omc = g_f4 - s_ang * g_cos;
+  const float g_s = -f4 * g_cos + 0.5f * g_omc * sc3_sq + 0.5f * g_f1 * cs_sq;
+  // ---- reverse: gauge rescale W = w inv_scale, T = t inv_scale,
+  // inv_scale = 1/max(overall, 1e-6): each point once (view 0's lanes),
+  // each translation once (point 0's lanes of the other views)
+  float g_inv = 0.f;
+  if (m == 0) g_inv = g_w[0] * w_raw[0] + g_w[1] * w_raw[1] + g_w[2] * w_raw[2];
+  if (m > 0 && n == 0)
+    g_inv = g_pose[3] * t_raw[0] + g_pose[4] * t_raw[1] + g_pose[5] * t_raw[2];
+  const float g_inv_scale = lane_sum<1, 32>(g_inv);
+  const float g_overall = overall > 1e-6f ? -g_inv_scale * inv_scale * inv_scale : 0.f;
+  const float g_abs_w = g_overall * N / (N + M) / (3.f * N);
+  const float g_abs_t = g_overall * M / (N + M) / (3.f * (M - 1));
 
+  float* ge = g_sh + warp * P;
+  if (m == 0) {
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        float w[3];
+    for (int i = 0; i < 3; ++i) ge[3 + 3 * n + i] = g_w[i] * inv_scale + g_abs_w * signf(w_raw[i]);
+  }
+  if (m > 0 && n == 0) {
 #pragma unroll
-        for (int i = 0; i < 3; ++i) w[i] = p[3 + 3 * n + i] * inv_scale;
-        const int kW = 3 + 3 * n;  // this point's slot in gp
-        // ---- forward: camera-relative point q
-        float q[3], c[3] = {0.f, 0.f, 0.f}, dot = 0.f;
-        if (m == 0) {
-          q[0] = w[0];
-          q[1] = w[1];
-          q[2] = w[2];
-        } else {
-          dot = w[0] * o[0] + w[1] * o[1] + w[2] * o[2];
-          c[0] = o[1] * w[2] - o[2] * w[1];
-          c[1] = o[2] * w[0] - o[0] * w[2];
-          c[2] = o[0] * w[1] - o[1] * w[0];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) q[i] = w[i] * cos_t + f4 * dot * o[i] + c[i] * f1 + T[i];
-        }
-        const float qn = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
-        const float inv_qn = 1.f / fmaxf(qn, kNormFloor);
-        // ---- forward: unit ray a and unit point direction bq
-        const size_t idx = static_cast<size_t>(m * N + n) * B + b;
-        const float r[3] = {u[idx] - cx, v[idx] - cy, focal};
-        const float rn = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2]);
-        const float inv_rn = 1.f / fmaxf(rn, kNormFloor);
-        float a[3], bq[3], dm[3], sm[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          a[i] = r[i] * inv_rn;
-          bq[i] = q[i] * inv_qn;
-          dm[i] = a[i] - bq[i];
-          sm[i] = a[i] + bq[i];
-        }
-        const float d2 = dm[0] * dm[0] + dm[1] * dm[1] + dm[2] * dm[2];
-        const float s2 = sm[0] * sm[0] + sm[1] * sm[1] + sm[2] * sm[2];
-        const float diff = d2 > 0.f ? sqrtf(d2) : 0.f;
-        const float summ = s2 > 0.f ? sqrtf(s2) : 0.f;
-        float d_diff, d_summ;
-        const float angle = atan2_poly(diff, summ, d_diff, d_summ);
-        const float weight = vis[idx];
-        total += 2.f * angle * weight;
-
-        // ---- reverse: theta -> |a - b|^2, |a + b|^2 (guarded sqrt)
-        const float g_d2 = d2 > 0.f ? weight * d_diff / diff : 0.f;  // 2 w d_diff / (2 diff)
-        const float g_s2 = s2 > 0.f ? weight * d_summ / summ : 0.f;
-        float g_a[3], g_b[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          g_a[i] = 2.f * (g_d2 * dm[i] + g_s2 * sm[i]);
-          g_b[i] = 2.f * (g_s2 * sm[i] - g_d2 * dm[i]);
-        }
-        // ---- reverse: normalisations (the max() passes the norm's
-        // gradient only above the floor)
-        const float ga_a = rn > kNormFloor ? g_a[0] * a[0] + g_a[1] * a[1] + g_a[2] * a[2] : 0.f;
-        const float gb_b = qn > kNormFloor ? g_b[0] * bq[0] + g_b[1] * bq[1] + g_b[2] * bq[2] : 0.f;
-        float g_q[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) g_q[i] = inv_qn * (g_b[i] - bq[i] * gb_b);
-        g_cx -= inv_rn * (g_a[0] - a[0] * ga_a);
-        g_cy -= inv_rn * (g_a[1] - a[1] * ga_a);
-        g_focal += inv_rn * (g_a[2] - a[2] * ga_a);
-        // ---- reverse: Rodrigues
-        if (m == 0) {
-#pragma unroll
-          for (int i = 0; i < 3; ++i) gp[kW + i] += g_q[i];
-        } else {
-          const float gq_o = g_q[0] * o[0] + g_q[1] * o[1] + g_q[2] * o[2];
-          const float g_dot = f4 * gq_o;
-          g_cos += g_q[0] * w[0] + g_q[1] * w[1] + g_q[2] * w[2];
-          g_f4 += gq_o * dot;
-          g_f1 += g_q[0] * c[0] + g_q[1] * c[1] + g_q[2] * c[2];
-          float g_c[3];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) g_c[i] = f1 * g_q[i];
-          // c = o x W:  dc.o -> W x g_c,  dc.W -> g_c x o
-          g_o[0] += f4 * dot * g_q[0] + g_dot * w[0] + (w[1] * g_c[2] - w[2] * g_c[1]);
-          g_o[1] += f4 * dot * g_q[1] + g_dot * w[1] + (w[2] * g_c[0] - w[0] * g_c[2]);
-          g_o[2] += f4 * dot * g_q[2] + g_dot * w[2] + (w[0] * g_c[1] - w[1] * g_c[0]);
-          gp[kW + 0] += g_q[0] * cos_t + g_dot * o[0] + (g_c[1] * o[2] - g_c[2] * o[1]);
-          gp[kW + 1] += g_q[1] * cos_t + g_dot * o[1] + (g_c[2] * o[0] - g_c[0] * o[2]);
-          gp[kW + 2] += g_q[2] * cos_t + g_dot * o[2] + (g_c[0] * o[1] - g_c[1] * o[0]);
-#pragma unroll
-          for (int i = 0; i < 3; ++i) g_T[i] += g_q[i];
-        }
-      }
-      if (m > 0) {
-        // cos = 1 - s f4(s); f4' = sin_cubed_sq / 2; f1' = cos_sin_sq / 2
-        const float g_omc = g_f4 - s_ang * g_cos;
-        const float g_s = -f4 * g_cos + 0.5f * g_omc * sin_cubed_sq(s_ang) +
-                          0.5f * g_f1 * cos_sin_sq(s_ang);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          gp[kR + 3 * (m - 1) + i] = g_o[i] + 2.f * g_s * o[i];
-          gp[kT + 3 * (m - 1) + i] = g_T[i] * inv_scale;
-          g_inv_scale += g_T[i] * p[kT + 3 * (m - 1) + i];
-        }
-      }
+    for (int i = 0; i < 3; ++i) {
+      ge[kT + 3 * (m - 1) + i] = g_pose[3 + i] * inv_scale + g_abs_t * signf(t_raw[i]);
+      ge[kR + 3 * (m - 1) + i] = g_pose[i] + 2.f * g_s * o[i];
     }
-
-    // ---- reverse: gauge rescale W = w inv_scale, inv_scale = 1/max(overall, 1e-6)
-#pragma unroll
-    for (int k = 3; k < kT; ++k) {
-      g_inv_scale += gp[k] * p[k];
-      gp[k] *= inv_scale;
-    }
-    const float g_overall = overall > 1e-6f ? -g_inv_scale * inv_scale * inv_scale : 0.f;
-    const float g_abs_w = g_overall * N / (N + M) / (3.f * N);
-    const float g_abs_t = g_overall * M / (N + M) / (3.f * (M - 1));
-#pragma unroll
-    for (int k = 3; k < kT; ++k) gp[k] += g_abs_w * signf(p[k]);
-#pragma unroll
-    for (int k = kT; k < kR; ++k) gp[k] += g_abs_t * signf(p[k]);
-    gp[0] = g_focal * d_focal;
-    gp[1] = g_cx;
-    gp[2] = g_cy;
-
-    err[b] = total;
-#pragma unroll
-    for (int k = 0; k < P; ++k) tile[k * kBlock + tid] = gp[k];
+  }
+  if (lane == 0) {
+    ge[0] = g_focal * d_focal;
+    ge[1] = g_cx;
+    ge[2] = g_cy;
+    if (warp < nb) err[b0 + warp] = total;
   }
   __syncthreads();
-  for (int e = tid; e < nb * P; e += kBlock) {
-    const int el = e / P;
-    grad[base + e] = tile[(e - el * P) * kBlock + el];
-  }
+  for (int k = tid; k < nb * P; k += kThreads) grad[base + k] = g_sh[k];
 }
 
 template <int M, int N>
 int launch(const float* params, const float* u, const float* v, const float* vis,
            float* err, float* grad, int B, cudaStream_t stream) {
-  const int grid = (B + kBlock - 1) / kBlock;
-  calibration_vg_kernel<M, N><<<grid, kBlock, 0, stream>>>(params, u, v, vis, err, grad, B);
+  const int grid = (B + kWarps - 1) / kWarps;
+  calibration_vg_kernel<M, N><<<grid, kThreads, 0, stream>>>(params, u, v, vis, err, grad, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,10 @@ plain version.
 
 The port of ``davo_tpu/ops/bfgs_update.py::fused_bfgs_update_direction``
 (Pallas kernel ``_kernel``).  The inverse-Hessian carry is channel-major
-``(P, P, B)``, so in the CUDA kernel (``csrc/bfgs_update.cu``, one thread
-per batch element) neighbouring threads touch neighbouring addresses.
+``(P, P, B)``, so in the CUDA kernel (``csrc/bfgs_update.cu``: up to
+P = 48 one thread per row of H and 16 batch elements a block, each entry
+read once; above, the two-pass route) neighbouring threads touch
+neighbouring addresses.
 The carry may be stored float32 or bfloat16; the update arithmetic is
 float32.  :func:`reference_update_direction` is the plain version: the
 batch-major algebra of the solver's Hessian block.

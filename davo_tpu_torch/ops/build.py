@@ -60,7 +60,8 @@ launch_counts: Dict[str, int] = {
 }
 
 _library: Optional[ctypes.CDLL] = None
-# what the last build printed: seconds, and the ptxas register/spill lines
+# what the last build printed: seconds, and ptxas's lines (registers,
+# shared memory, stack frame and spill bytes of each kernel)
 build_log: Dict[str, object] = {}
 
 _P = ctypes.c_void_p
@@ -122,7 +123,7 @@ def _build(nvcc: str, library: Path) -> None:
     failures = []
     for cmd, _, proc in procs:
         out, _ = proc.communicate()
-        ptxas += [ln.strip() for ln in out.splitlines() if "ptxas" in ln]
+        ptxas += [ln.strip() for ln in out.splitlines() if "ptxas" in ln or "spill" in ln]
         if proc.returncode != 0:
             failures.append(f"$ {' '.join(cmd)}\n{out}")
     if failures:

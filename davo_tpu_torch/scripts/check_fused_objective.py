@@ -14,9 +14,10 @@ and |dphi| difference of K4 (value + directional derivative) against
 polynomial atan2 and the objective the exact one, so the differences are
 that approximation plus float32 rounding.
 
-The JAX script sweeps the Pallas grid's ``block_b`` (256, 512); K2 and K4
-run one thread per element with a fixed block of 128 threads and take no
-such parameter, so each kernel has one line.
+The JAX script sweeps the Pallas grid's ``block_b`` (256, 512); K2 (a
+warp per element, 8 elements a block) and K4 (one thread per element, 128
+a block) have fixed blocks and take no such parameter, so each kernel has
+one line.
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def main(device: Optional[Union[str, torch.device]] = None, batch: int = 16384) 
     err_t, grad_t = inputs.torch_value_and_grad(inputs.guess)
     err_d, dphi_d = inputs.kernel_value_and_dirderiv(inputs.guess, inputs.direction)
     err_j, dphi_j = inputs.torch_value_and_dirderiv(inputs.guess, inputs.direction)
-    common = dict(device=device_name(device), batch=batch, block="one thread per element (no block_b parameter)")
+    common = dict(device=device_name(device), batch=batch, block="fixed (no block_b parameter)")
     lines = [
         dict(kernel="K2 calibration_value_and_grad", reference="torch.autograd of calibration_error_fast",
              max_abs_err_diff=_max_abs(err_k, err_t), max_abs_grad_diff=_max_abs(grad_k, grad_t),

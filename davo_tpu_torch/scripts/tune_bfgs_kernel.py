@@ -6,8 +6,9 @@ The nine cases of the JAX script (``scripts/tune_bfgs_kernel.py``, ``main``):
 the shipped kernel K1 (``broadcast`` there: the shipped Pallas kernel), and
 the ``rowloop`` and ``rowloop2`` orderings of K1′, over the TPU's batch
 blocks 128, 256 and 512 (here 16, 32 and 64 elements per block, 8 threads
-each; K1 has its own fixed block of 32 elements, so its two bfloat16 cases
-time the same kernel twice) and H stored float32 or bfloat16.  Isolated
+each; K1 has its own block, 16 elements, or 32 in bfloat16 at an even
+batch, so its two bfloat16 cases time the same kernel twice) and H
+stored float32 or bfloat16.  Isolated
 H-update loop at B = 16,384 and P = 45: 20 iterations ``(h, v) <- (H+, v +
 1e-9 d)`` with every element updating and neither the first nor the
 second step's flags, timed by CUDA events as the slope between 5 and 1
@@ -49,7 +50,6 @@ P, ITERATIONS = 45, 20
 SHORT, LONG, BEST_OF = 1, 5, 3
 # H100 SXM published memory rate (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
-K1_ELEMENTS_PER_BLOCK = 32  # csrc/bfgs_update.cu kElems
 
 # label -> (kernel, its plain version)
 KERNELS = {
@@ -71,15 +71,21 @@ CASES = (
 )
 
 
-def _elements_per_block(label: str, block_b: int) -> int:
-    return K1_ELEMENTS_PER_BLOCK if label == "broadcast" else block_b // 8
+def _elements_per_block(label: str, block_b: int, h_dtype: torch.dtype, batch: int) -> int:
+    """K1' as the case says; K1 by the rule of ``csrc/bfgs_update.cu``'s
+    register route at P = 45: 16 threads along the batch, one element each,
+    or a packed bfloat16 pair each where the batch is even (the script's
+    carries are fresh, so aligned)."""
+    if label != "broadcast":
+        return block_b // 8
+    return 32 if h_dtype == torch.bfloat16 and batch % 2 == 0 else 16
 
 
 def _op(label: str, block_b: int):
     kernel = KERNELS[label][0]
     if label == "broadcast":
         return kernel
-    elements = _elements_per_block(label, block_b)
+    elements = block_b // 8
     return lambda *args: kernel(*args, elements_per_block=elements)
 
 
@@ -163,7 +169,7 @@ def main(device: Optional[Union[str, torch.device]] = None, batch: int = 16384) 
             _loop(op, h0, v, updating, SHORT)
             ms = gbps = share = "not measured"
         line = dict(
-            kernel=label, block=block_b, elements_per_block=_elements_per_block(label, block_b),
+            kernel=label, block=block_b, elements_per_block=_elements_per_block(label, block_b, h_dtype, batch),
             h_dtype=str(h_dtype).replace("torch.", ""), ms_per_20_iters=ms, GBps=gbps,
             bound_ms_per_20_iters=bound_ms, bound_by="bytes", share_of_bound=share, check=check,
             device=device_name(device), batch=batch,

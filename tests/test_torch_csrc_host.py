@@ -12,6 +12,9 @@ arithmetic; what only the card can show (the device compiler, timing) is
 ``kernel<<<grid, block, shared, stream>>>(args)`` to a call of the stub's
 ``emulate``.
 
+Shuffles are emulated through a per-block exchange buffer between two
+barrier arrivals (``tests/csrc_host/cuda_runtime.h``).
+
 Tolerances, float32 on both sides: K1 and K1′ normwise 1e-4 (bfloat16 H:
 1e-2, one rounding of the stored H), K2 values 1e-5 and gradients 1e-4
 normwise, K4 values 1e-5 and directional derivatives 1e-4 normwise, K3
@@ -91,15 +94,24 @@ def _k1_problem(b, p):
     return h, s, y, g, upd
 
 
-def _run_k1_source(launch, h, s, y, g, upd, bf16, plain, first, second):
+def _at_offset(x, offset):
+    """``x`` copied into a buffer at ``offset`` elements from its start."""
+    buf = np.empty(x.size + offset, x.dtype)
+    out = buf[offset:].reshape(x.shape)
+    out[...] = x
+    return out
+
+
+def _run_k1_source(launch, h, s, y, g, upd, bf16, plain, first, second, offset=0):
     """Launch a K1-shaped entry point on the host and hold H+ and d
-    against ``plain`` (batch-major) on the same float32 inputs."""
+    against ``plain`` (batch-major) on the same float32 inputs; H and H+
+    lie ``offset`` elements into their buffers."""
     b, p = s.shape
     h_t = torch.tensor(h, dtype=torch.float32).permute(1, 2, 0).contiguous()
     if bf16:
         h_t = h_t.to(torch.bfloat16)
-    h_in = h_t.view(torch.int16).numpy() if bf16 else h_t.numpy()
-    h_out = np.empty_like(h_in)
+    h_in = _at_offset(h_t.view(torch.int16).numpy() if bf16 else h_t.numpy(), offset)
+    h_out = _at_offset(np.empty_like(h_in), offset)
     d = np.empty((b, p), np.float32)
     mask = upd.astype(np.uint8)
     status = launch(
@@ -120,10 +132,40 @@ def _run_k1_source(launch, h, s, y, g, upd, bf16, plain, first, second):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
 def test_bfgs_update_source(host_library, bf16, first, second):
-    b, p = 200, 45  # 7 blocks of 32 elements, the last one ragged
+    b, p = 200, 45  # the last block ragged (16 elements a block; bfloat16 pairs, 32 a block)
     _run_k1_source(
         lambda *args: host_library.davo_bfgs_update_direction(*args, None),
         *_k1_problem(b, p), bf16, reference_update_direction, first, second,
+    )
+
+
+@pytest.mark.parametrize(
+    "b,p",
+    [
+        (37, 7),  # register route, a small P, odd B (bfloat16 one element a thread): the last block ragged
+        (40, 48),  # register route at its ceiling (kMaxRows = 48: 768 threads a block)
+        (45, 49),  # above the ceiling: the two-pass route (32 elements a block)
+        (70, 64),
+        (75, 45),  # the served P at an odd B: bfloat16 one element a thread, 16 a block
+    ],
+)
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
+def test_bfgs_update_source_around_the_register_ceiling(host_library, b, p, bf16, first, second):
+    _run_k1_source(
+        lambda *args: host_library.davo_bfgs_update_direction(*args, None),
+        *_k1_problem(b, p), bf16, reference_update_direction, first, second,
+    )
+
+
+@pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
+def test_bfgs_update_source_bf16_carry_at_an_odd_element(host_library, first, second):
+    """A bfloat16 carry that starts 2 bytes past a 4-byte boundary (a view
+    at an odd element, B even): the packed pairs would be misaligned, which
+    the stub reports as the card does, so K1 takes one element a thread."""
+    _run_k1_source(
+        lambda *args: host_library.davo_bfgs_update_direction(*args, None),
+        *_k1_problem(64, 45), True, reference_update_direction, first, second, offset=1,
     )
 
 
@@ -150,10 +192,14 @@ def test_bfgs_update_variant_refuses_unsupported(host_library):
         assert status != 0
 
 
-def _objective_problem(seed):
+def _objective_problem(seed, b=300):
+    """``b`` elements (300: K2's 38 blocks of 8 and K4's 3 blocks of 128,
+    the last one ragged in both) with the objective's edges: identity
+    rotations, small angles (the Taylor branches), f < 0 and f = 0 (the
+    exp branch of elu(f) + 1), a view with nothing visible and an element
+    that sees nothing."""
     rng = np.random.default_rng(seed)
     m, n = 4, 8
-    b = 300  # 3 blocks of 128, the last one ragged
     p = 3 + 3 * n + 6 * (m - 1)
     params = 0.3 * rng.normal(size=(b, p))
     params[:, 0] += rng.normal(size=b)
@@ -165,24 +211,40 @@ def _objective_problem(seed):
     u = rng.uniform(-1, 1, size=(m, n, b))
     v = rng.uniform(-1, 1, size=(m, n, b))
     vis = (rng.random((m, n, b)) > 0.2).astype(np.float64)
+    if b > 5:
+        params[3, 0] = 0.0  # f = 0: the exp branch's edge
+        vis[2, :, 4] = 0.0  # element 4: view 2 sees nothing
+        vis[:, :, 5] = 0.0  # element 5 sees nothing
     direction = rng.normal(size=(b, p))
     return tuple(np.ascontiguousarray(x, dtype=np.float32) for x in (params, u, v, vis, direction))
 
 
-@pytest.mark.parametrize("seed", [1, 2])
-def test_calibration_value_and_grad_source(host_library, seed):
-    params, u, v, vis, _ = _objective_problem(seed)
+def _run_k2_source(host_library, params, u, v, vis):
     (m, n, b), p = u.shape, params.shape[1]
-    err = np.empty(b, np.float32)
-    grad = np.empty((b, p), np.float32)
+    err = np.full(b + 1, np.nan, np.float32)  # one slot past the end: never written
+    grad = np.full((b + 1, p), np.nan, np.float32)
     status = host_library.davo_calibration_value_and_grad(
         params.ctypes.data, u.ctypes.data, v.ctypes.data, vis.ctypes.data,
         err.ctypes.data, grad.ctypes.data, b, m, n, None,
     )
     assert status == 0
+    assert np.isnan(err[b]) and np.all(np.isnan(grad[b]))
     ref_err, ref_grad = _value_and_grad_plain(*(torch.tensor(x) for x in (params, u, v, vis)))
-    assert _normwise(err, ref_err.numpy()) <= 1e-5
-    assert _normwise(grad, ref_grad.numpy()) <= 1e-4
+    assert _normwise(err[:b], ref_err.numpy()) <= 1e-5
+    assert _normwise(grad[:b], ref_grad.numpy()) <= 1e-4
+    return err[:b], grad[:b]
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_calibration_value_and_grad_source(host_library, seed):
+    err, grad = _run_k2_source(host_library, *_objective_problem(seed)[:4])
+    assert err[5] == 0.0  # an element that sees nothing
+    assert np.all(np.isfinite(grad))
+
+
+@pytest.mark.parametrize("b", [3, 7, 13])
+def test_calibration_value_and_grad_source_one_ragged_block(host_library, b):
+    _run_k2_source(host_library, *_objective_problem(b, b)[:4])
 
 
 @pytest.mark.parametrize("seed", [1, 2])

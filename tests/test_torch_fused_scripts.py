@@ -61,9 +61,16 @@ def test_tune_bfgs_kernel(capsys):
     assert cases == [(name, block, str(dtype).replace("torch.", "")) for name, block, dtype in tune_bfgs_kernel.CASES]
     for line in lines:
         assert line["ms_per_20_iters"] == "not measured" and line["bound_ms_per_20_iters"] > 0
-        assert line["elements_per_block"] == (32 if line["kernel"] == "broadcast" else line["block"] // 8)
+        k1_elements = 32 if line["h_dtype"] == "bfloat16" else 16  # K1's register route, even batch
+        assert line["elements_per_block"] == (k1_elements if line["kernel"] == "broadcast" else line["block"] // 8)
         # on the CPU the wrapper runs the plain version itself
         assert line["check"]["max_abs_err"] == 0.0
+
+
+def test_tune_bfgs_kernel_at_an_odd_batch():
+    """At an odd batch K1 holds one bfloat16 element a thread: 16 a block."""
+    lines = tune_bfgs_kernel.main(device="cpu", batch=15)
+    assert {line["elements_per_block"] for line in lines if line["kernel"] == "broadcast"} == {16}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():

@@ -47,8 +47,12 @@ def _k1_inputs(b, p, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
-def test_bfgs_update_kernel_matches_plain(cuda_device, h_dtype):
-    h_t, s, y, grad, updating = _k1_inputs(1000, 45)  # a ragged last block
+@pytest.mark.parametrize(
+    "p",
+    [45, 27, 48, 49],  # the register route (P <= 48: 3 views x 4 points, its ceiling) and the two-pass one above
+)
+def test_bfgs_update_kernel_matches_plain(cuda_device, h_dtype, p):
+    h_t, s, y, grad, updating = _k1_inputs(1000, p)  # a ragged last block (16 and 32 elements a block)
     h_t = h_t.to(h_dtype)
     on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
     for first, second in FLAGS:
@@ -58,6 +62,25 @@ def test_bfgs_update_kernel_matches_plain(cuda_device, h_dtype):
         assert build.launch_counts["bfgs_update"] == before + 1
         p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
         assert _normwise(k_h, p_h) <= (1e-2 if h_dtype == torch.bfloat16 else 1e-4)
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_bfgs_update_kernel_takes_a_bf16_carry_at_an_odd_element(cuda_device):
+    """A contiguous bfloat16 H that starts at an odd element (2 bytes past a
+    4-byte boundary) at an even B: no packed pair may be loaded from it."""
+    h_t, s, y, grad, updating = _k1_inputs(64, 45)
+    h_t = h_t.to(torch.bfloat16)
+    buf = torch.empty(h_t.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    h_odd = buf[1:].view(h_t.shape)
+    h_odd.copy_(h_t)
+    assert h_odd.is_contiguous() and h_odd.data_ptr() % 4 == 2
+    on_card = [x.to(cuda_device) for x in (s, y, grad, updating)]
+    for first, second in FLAGS:
+        k_h, k_d = k1.fused_bfgs_update_direction(h_odd, *on_card, first, second)
+        torch.cuda.synchronize()
+        p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= 1e-2
         assert _normwise(k_d, p_d) <= 1e-4
 
 
@@ -87,17 +110,20 @@ def _objective_inputs(b, m=4, n=8):
     params[:, 0] += rng.normal(size=b)
     params[:, 5 : 3 + 3 * n : 3] += 1.0
     params[:50, 3 + 3 * n + 3 * (m - 1) :] *= 1e-3  # the Taylor branches
+    params[1::9, 0] = -np.abs(params[1::9, 0])  # f <= 0: the exp branch
     u = rng.uniform(-1, 1, size=(m, n, b))
     v = rng.uniform(-1, 1, size=(m, n, b))
     vis = (rng.random((m, n, b)) > 0.2).astype(np.float64)
-    vis[:, :, 7] = 0.0  # an element with nothing visible
+    vis[2, :, 3::11] = 0.0  # a view with nothing visible
+    vis[:, :, 7:8] = 0.0  # an element with nothing visible (where b > 7)
     direction = rng.normal(size=(b, p))
     return [torch.tensor(x, dtype=torch.float32) for x in (params, u, v, vis, direction)]
 
 
 @pytest.mark.gpu
-def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
-    params, u, v, vis, _ = _objective_inputs(1000)  # a ragged last block
+@pytest.mark.parametrize("b", [1000, 1003, 5])  # whole blocks of 8 elements; a ragged last one; one block
+def test_calibration_value_and_grad_kernel_matches_plain(cuda_device, b):
+    params, u, v, vis, _ = _objective_inputs(b)
     on_cpu = [params, u, v, vis]
     before = build.launch_counts["calibration_value_and_grad"]
     k_err, k_grad = k2.calibration_value_and_grad(*(x.to(cuda_device) for x in on_cpu))
@@ -106,6 +132,8 @@ def test_calibration_value_and_grad_kernel_matches_plain(cuda_device):
     p_err, p_grad = k2.calibration_value_and_grad(*on_cpu)
     assert _normwise(k_err, p_err) <= 1e-5
     assert _normwise(k_grad, p_grad) <= 1e-4
+    if b > 7:
+        assert float(k_err[7]) == 0.0  # nothing visible
 
 
 @pytest.mark.gpu
