@@ -18,10 +18,12 @@ Phases, each printed as one JSON line with its seconds:
    k3       the attention kernel against its plain version at the matcher's
             shape (3,072 problems of 144 x 144, D = 64, C = 2) and on masked,
             ragged inputs; its time beside the plain version's and beside
-            torch's scaled_dot_product_attention (timed only as a yardstick);
+            torch's scaled_dot_product_attention as the matcher would call
+            it (timed only as a yardstick); its bound on the tensor cores
+            and, apart, on the CUDA cores alone;
    k4       the value + directional derivative kernel against its plain
             version at B = 16384 and 8192, with an element that sees nothing
-            and elements with f <= 0;
+            and elements with f <= 0, as k2;
    k1v      the K1' orderings (rowloop, rowloop2; 16 elements per block)
             against their plain versions at B = 16384, as k1;
 4. serve    the v2_600 calibration network (transformer head, embed 256,
@@ -87,6 +89,7 @@ V4_REFERENCE_LOG = os.path.join(REPO, "artifacts", "eval_v4_calib.log")
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12  # tensor cores, dense
 
 # 2 serve requests: with the eval entry's five solves in the run, every
 # path fits in about half the time limit
@@ -349,6 +352,7 @@ def k4_operations(m, n):
 
 
 def k4_phase(batch, device):
+    from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.calibration_obj import _value_and_dirderiv_plain, calibration_value_and_dirderiv
 
     params, u, v, vis = k2_inputs(batch, device, seed=batch + 2)  # small angles, f <= 0 on 1/8
@@ -376,6 +380,7 @@ def k4_phase(batch, device):
         batch=batch, checks=checks, max_abs_err=max(checks["error"]["max_abs_err"], checks["dphi"]["max_abs_err"]),
         ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
         library_ms=None, operations_per_element=k4_operations(M, N),
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), f"calibration_dirderiv_kernelILi{M}ELi{N}E"),
     )
 
 
@@ -394,32 +399,55 @@ def k3_inputs(b, q_len, kv_len, d, c, device, seed, masked):
     return q, k, v, mask
 
 
-def sdpa_ms(q, k, v):
-    """torch's scaled_dot_product_attention on the same inputs with a
-    boolean key mask (all keys valid, as on the matcher's path), under the
-    first backend that takes them; timed as a yardstick, never used by the
-    port."""
+def sdpa_ms(q, k, v, expected):
+    """torch's scaled_dot_product_attention as the matcher would call it:
+    no mask (``models/matcher.py`` passes none) and V zero-padded to the
+    narrowest width the backend takes, under the first backend that takes
+    the inputs in the order EFFICIENT, CUDNN, FLASH, MATH.  The pad and
+    the slice back to C happen outside the timed call.  Timed as a
+    yardstick, never used by the port; its error against ``expected`` is
+    recorded, not checked."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q, k, v = q[:, None], k[:, None], v[:, None]  # (B, heads = 1, L, E): the fused backends want 4-D
-    mask = torch.ones(q.shape[0], 1, 1, k.shape[2], dtype=torch.bool, device=q.device)
-    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4 = q[:, None], k[:, None]  # (B, heads = 1, L, E): the fused backends want 4-D
+    c = v.shape[-1]
+    widths = [c] + [w for w in (4, 8, 16, 32, 64) if w > c]
+    backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.MATH]
     for backend in backends:
-        try:
-            # a backend that refuses the inputs warns why, then raises
-            with sdpa_kernel([backend]), warnings.catch_warnings():
-                warnings.simplefilter("ignore", UserWarning)
-                torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-                torch.cuda.synchronize()
-        except RuntimeError:
-            continue
-        with sdpa_kernel([backend]):
-            ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask), reps=20)
-        return ms, backend.name
-    return None, "none"
+        for width in widths:
+            v4 = torch.nn.functional.pad(v, (0, width - c))[:, None].contiguous()
+            try:
+                # a backend that refuses the inputs warns why, then raises
+                with sdpa_kernel([backend]), warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    got = sdpa(q4, k4, v4)
+                    torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with sdpa_kernel([backend]):
+                ms = cuda_ms(lambda: sdpa(q4, k4, v4), reps=50)
+            return dict(
+                library_ms=ms, library_backend=backend.name, library_value_width=width,
+                library_max_abs_err=(got[:, 0, :, :c] - expected).abs().max().item(),
+            )
+    return dict(library_ms=None, library_backend="none")
+
+
+def sdpa_masked_math_ms(q, k, v):
+    """scaled_dot_product_attention with an all-true boolean key mask and
+    V at its own width C, which every fused backend refuses in float32:
+    the MATH backend, kept beside the fair yardstick for the older records."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    mask = torch.ones(q.shape[0], 1, 1, k.shape[1], dtype=torch.bool, device=q.device)
+    with sdpa_kernel([SDPBackend.MATH]):
+        return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), reps=20)
 
 
 def k3_phase(device):
+    from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.attention import flash_match_attention, reference_flash_attention
 
     checks, worst = {}, 0.0
@@ -446,15 +474,28 @@ def k3_phase(device):
     ms = cuda_ms(lambda: flash_match_attention(q, k, v), reps=50)
     graph_ms = graph_replay_ms(lambda: flash_match_attention(q, k, v), reps=50)
     plain_ms = cuda_ms(lambda: reference_flash_attention(q, k, v), reps=10, warmup=1)
-    library_ms, library_backend = sdpa_ms(q, k, v)
+    library = sdpa_ms(q, k, v, reference_flash_attention(q, k, v))
+    library_math_ms = sdpa_masked_math_ms(q, k, v)
     b, ql, kl, d, c = K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH
     bytes_moved = 4 * b * (ql * d + kl * d + kl * c + ql * c)
-    operations = b * (2 * ql * kl * d + 2 * ql * kl * c)
-    bound_ms, bound_by = bound(bytes_moved, operations)
+    # the kernel's route: QK^T as three TF32 products on the tensor cores
+    # (3xTF32), PV and one exp a score on the CUDA cores
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_tensor = 3 * b * 2 * ql * kl * d / PEAK_TF32_OPS_PER_S * 1e3
+    t_cuda = b * (2 * ql * kl * c + ql * kl) / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_tensor, t_cuda)
+    bound_by = "bytes" if bound_ms == t_bytes else "operations"
+    # the same work on the CUDA cores alone (the bound of the first design, which ran there)
+    bound_cuda_core_ms = b * (2 * ql * kl * d + 2 * ql * kl * c) / PEAK_F32_OPS_PER_S * 1e3
     return dict(
         problems=b, queries=ql, keys=kl, depth=d, width=c, checks=checks, max_abs_err=worst,
         ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-        library_ms=library_ms, library_backend=library_backend,
+        bound_parts_ms=dict(bytes=t_bytes, tf32_tensor_cores=t_tensor, f32_cuda_cores=t_cuda),
+        bound_cuda_core_ms=bound_cuda_core_ms, share_of_cuda_core_bound=bound_cuda_core_ms / ms,
+        **library, library_math_ms=library_math_ms,
+        library_note="SDPA unmasked, V zero-padded to library_value_width outside the timed call; "
+        "library_math_ms: boolean mask, V at C, MATH backend",
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), f"match_attention_kernelILi{d}ELi{c}E"),
     )
 
 

@@ -1,8 +1,10 @@
 // Device helpers shared by the calibration objective kernels K2
 // (calibration_obj.cu) and K4 (calibration_dirderiv.cu): the float32
-// forms of davo_tpu/utils/stable_trig.py's squared-angle ratios and the
+// forms of davo_tpu/utils/stable_trig.py's squared-angle ratios (one at a
+// time, and the four of a pose from one sincosf and one sinf), the
 // first-quadrant polynomial atan2 of davo_tpu/camera/calibration_fast.py,
-// with its partial derivatives along the same where-branches.
+// with its partial derivatives along the same where-branches, and the
+// warp's fixed-order butterfly sum.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,6 +74,37 @@ __device__ __forceinline__ float atan2_poly(float y, float x, float& dy, float& 
   dy = swap ? g_den : g_num;
   dx = swap ? g_num : g_den;
   return swap ? kPi2 - a : a;
+}
+
+// The four squared-angle ratios of one s (above): sinc_sq,
+// one_minus_cos_sq, cos_sin_sq and sin_cubed_sq, each by the helper's own
+// Taylor branch below its threshold and above it from one sincosf of
+// x = sqrt(s) and one sinf of x / 2, in the helpers' expressions.
+__device__ __forceinline__ void pose_ratios(float s, float& f1, float& f4, float& cs, float& sc3) {
+  if (s < kSmallSq) {
+    f1 = sinc_sq(s);
+    f4 = one_minus_cos_sq(s);
+    cs = cos_sin_sq(s);
+    sc3 = sin_cubed_sq(s);
+    return;
+  }
+  const float x = sqrtf(s);
+  float sx, cx;
+  sincosf(x, &sx, &cx);
+  const float h = sinf(0.5f * x);
+  f1 = sx / x;
+  f4 = 2.f * h * h / s;
+  cs = (cx - sx / x) / s;
+  sc3 = s < kSmallSqF3 ? sin_cubed_sq(s) : (sx / x - 4.f * h * h / s) / s;
+}
+
+// Sum of x over the lanes that differ from this one in bits [lo, hi):
+// xor butterfly, the same order (and the same bits) on every lane.
+template <int kLo, int kHi>
+__device__ __forceinline__ float lane_sum(float x) {
+#pragma unroll
+  for (int k = kLo; k < kHi; k <<= 1) x += __shfl_xor_sync(0xffffffffu, x, k);
+  return x;
 }
 
 }  // namespace

@@ -70,37 +70,6 @@ constexpr int kObsStride = kWarps + 1;  // [term][element] rows, padded: no bank
 
 __device__ __forceinline__ float signf(float x) { return (x > 0.f) - (x < 0.f); }
 
-// Sum of x over the lanes that differ from this one in bits [lo, hi):
-// xor butterfly, the same order (and the same bits) on every lane.
-template <int kLo, int kHi>
-__device__ __forceinline__ float lane_sum(float x) {
-#pragma unroll
-  for (int k = kLo; k < kHi; k <<= 1) x += __shfl_xor_sync(0xffffffffu, x, k);
-  return x;
-}
-
-// The four squared-angle ratios of one s (calibration_common.cuh): sinc_sq,
-// one_minus_cos_sq, cos_sin_sq and sin_cubed_sq, each by the helper's own
-// Taylor branch below its threshold and above it from one sincosf of
-// x = sqrt(s) and one sinf of x / 2, in the helpers' expressions.
-__device__ __forceinline__ void pose_ratios(float s, float& f1, float& f4, float& cs, float& sc3) {
-  if (s < kSmallSq) {
-    f1 = sinc_sq(s);
-    f4 = one_minus_cos_sq(s);
-    cs = cos_sin_sq(s);
-    sc3 = sin_cubed_sq(s);
-    return;
-  }
-  const float x = sqrtf(s);
-  float sx, cx;
-  sincosf(x, &sx, &cx);
-  const float h = sinf(0.5f * x);
-  f1 = sx / x;
-  f4 = 2.f * h * h / s;
-  cs = (cx - sx / x) / s;
-  sc3 = s < kSmallSqF3 ? sin_cubed_sq(s) : (sx / x - 4.f * h * h / s) / s;
-}
-
 template <int M, int N>
 __global__ void __launch_bounds__(kThreads) calibration_vg_kernel(
     const float* __restrict__ params, const float* __restrict__ u,

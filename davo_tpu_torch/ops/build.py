@@ -45,7 +45,7 @@ SOURCES = (
     "match_attention.cu",
 )
 # headers the sources include (part of the build's hash)
-HEADERS = ("calibration_common.cuh",)
+HEADERS = ("calibration_common.cuh", "mma_tf32.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -14,10 +14,9 @@ and |dphi| difference of K4 (value + directional derivative) against
 polynomial atan2 and the objective the exact one, so the differences are
 that approximation plus float32 rounding.
 
-The JAX script sweeps the Pallas grid's ``block_b`` (256, 512); K2 (a
-warp per element, 8 elements a block) and K4 (one thread per element, 128
-a block) have fixed blocks and take no such parameter, so each kernel has
-one line.
+The JAX script sweeps the Pallas grid's ``block_b`` (256, 512); K2 and
+K4 (each a warp per element, 8 elements a block) have fixed blocks and
+take no such parameter, so each kernel has one line.
 """
 
 from __future__ import annotations

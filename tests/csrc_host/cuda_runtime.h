@@ -32,6 +32,7 @@ struct alignas(8) float2 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct dim3 {
   int x, y, z;
   dim3(int x_ = 1, int y_ = 1, int z_ = 1) : x(x_), y(y_), z(z_) {}
@@ -42,6 +43,10 @@ inline dim3 blockIdx, blockDim;
 inline std::barrier<>* g_barrier = nullptr;
 inline std::vector<float> g_dyn_smem;
 inline std::vector<float> g_exchange;  // one slot per thread of the block
+// warp-collective matrix instructions (mma_tf32.cuh): 12 words and a row
+// address per thread of the block
+inline std::vector<uint32_t> g_lane_words;
+inline std::vector<const float*> g_lane_rows;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_barrier->arrive_and_wait(); }
 inline float shuffle_from(float v, int src_lane) {
@@ -55,6 +60,16 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask, int = 32) {
   return shuffle_from(v, (t_linear & 31) ^ lane_mask);
 }
 inline float __shfl_sync(unsigned, float v, int src_lane, int = 32) { return shuffle_from(v, src_lane); }
+inline float __uint_as_float(uint32_t u) {
+  float x;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
+inline uint32_t __float_as_uint(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
 // The card faults on an access that is not aligned to its type's size;
 // here such an access is recorded and the launch reports the card's error.
 inline std::atomic<bool> g_misaligned{false};
@@ -78,6 +93,8 @@ inline void emulate(dim3 grid, dim3 block, size_t shared, cudaStream_t,
   blockDim = block;
   const int threads_per_block = block.x * block.y;
   g_exchange.assign(threads_per_block, 0.f);
+  g_lane_words.assign(12 * threads_per_block, 0u);
+  g_lane_rows.assign(threads_per_block, nullptr);
   for (int b = 0; b < grid.x; ++b) {
     blockIdx = dim3(b);
     std::barrier<> bar(threads_per_block);

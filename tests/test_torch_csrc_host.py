@@ -13,13 +13,19 @@ arithmetic; what only the card can show (the device compiler, timing) is
 ``emulate``.
 
 Shuffles are emulated through a per-block exchange buffer between two
-barrier arrivals (``tests/csrc_host/cuda_runtime.h``).
+barrier arrivals (``tests/csrc_host/cuda_runtime.h``); so are K3's
+warp-collective tensor-core product (``mma.sync`` m16n8k8 TF32) and its
+``ldmatrix`` loads, in the card's fragment layouts, by the stand-in for
+``csrc/mma_tf32.cuh`` (``tests/csrc_host/mma_tf32.cuh``, checked on its
+own against numpy).  Asynchronous copies land only at the wait that
+the card guarantees (``tests/csrc_host/cuda_pipeline.h``).
 
 Tolerances, float32 on both sides: K1 and K1′ normwise 1e-4 (bfloat16 H:
 1e-2, one rounding of the stored H), K2 values 1e-5 and gradients 1e-4
 normwise, K4 values 1e-5 and directional derivatives 1e-4 normwise, K3
-1e-5 normwise (float32 sums of D products and of the softmax weights in
-another order), with rows that have no valid key exactly zero.
+1e-5 normwise (QK^T as three TF32 products, "3xTF32", whose dropped term is
+2^-22 of a product, and float32 sums in another order), with rows that
+have no valid key exactly zero.
 """
 
 import ctypes
@@ -43,9 +49,11 @@ STUBS = Path(__file__).resolve().parent / "csrc_host"
 _LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
 
 
+_DYNAMIC_SHARED = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?float smem\[\];")
+
+
 def _host_source(cu: str) -> str:
-    cu = cu.replace("extern __shared__ float smem[];", "float* smem = g_dyn_smem.data();")
-    cu = cu.replace("__shared__ float tile", "static float tile")
+    cu = _DYNAMIC_SHARED.sub("float* smem = g_dyn_smem.data();", cu)
     return _LAUNCH.sub(lambda m: f"emulate({m.group(2)}, [&]{{ {m.group(1)}({m.group(3)}); }});", cu)
 
 
@@ -193,8 +201,8 @@ def test_bfgs_update_variant_refuses_unsupported(host_library):
 
 
 def _objective_problem(seed, b=300):
-    """``b`` elements (300: K2's 38 blocks of 8 and K4's 3 blocks of 128,
-    the last one ragged in both) with the objective's edges: identity
+    """``b`` elements (300: 38 blocks of 8 for K2 and K4, the last one
+    ragged) with the objective's edges: identity
     rotations, small angles (the Taylor branches), f < 0 and f = 0 (the
     exp branch of elu(f) + 1), a view with nothing visible and an element
     that sees nothing."""
@@ -247,20 +255,31 @@ def test_calibration_value_and_grad_source_one_ragged_block(host_library, b):
     _run_k2_source(host_library, *_objective_problem(b, b)[:4])
 
 
-@pytest.mark.parametrize("seed", [1, 2])
-def test_calibration_value_and_dirderiv_source(host_library, seed):
-    params, u, v, vis, direction = _objective_problem(seed)
+def _run_k4_source(host_library, params, u, v, vis, direction):
     (m, n, b) = u.shape
-    err = np.empty(b, np.float32)
-    dphi = np.empty(b, np.float32)
+    err = np.full(b + 1, np.nan, np.float32)  # one slot past the end: never written
+    dphi = np.full(b + 1, np.nan, np.float32)
     status = host_library.davo_calibration_value_and_dirderiv(
         params.ctypes.data, direction.ctypes.data, u.ctypes.data, v.ctypes.data, vis.ctypes.data,
         err.ctypes.data, dphi.ctypes.data, b, m, n, None,
     )
     assert status == 0
+    assert np.isnan(err[b]) and np.isnan(dphi[b])
     ref_err, ref_dphi = _value_and_dirderiv_plain(*(torch.tensor(x) for x in (params, direction, u, v, vis)))
-    assert _normwise(err, ref_err.numpy()) <= 1e-5
-    assert _normwise(dphi, ref_dphi.numpy()) <= 1e-4
+    assert _normwise(err[:b], ref_err.numpy()) <= 1e-5
+    assert _normwise(dphi[:b], ref_dphi.numpy()) <= 1e-4
+    return err[:b], dphi[:b]
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_calibration_value_and_dirderiv_source(host_library, seed):
+    err, dphi = _run_k4_source(host_library, *_objective_problem(seed))
+    assert err[5] == 0.0 and dphi[5] == 0.0  # an element that sees nothing
+
+
+@pytest.mark.parametrize("b", [3, 7, 13])
+def test_calibration_value_and_dirderiv_source_one_ragged_block(host_library, b):
+    _run_k4_source(host_library, *_objective_problem(b, b))
 
 
 def test_unsupported_scene_size_is_refused(host_library):
@@ -278,10 +297,16 @@ def test_unsupported_scene_size_is_refused(host_library):
 @pytest.mark.parametrize(
     "b,q_len,kv_len,d,c,masked",
     [
-        (2, 70, 90, 64, 2, True),  # ragged query tile, ragged key tile and chunk
-        (1, 20, 144, 40, 3, False),  # D padded to 64 in registers, C to 8
+        (2, 70, 90, 64, 2, True),  # ragged query tile, ragged key tile
+        (1, 20, 144, 40, 3, False),  # D padded to 64 in shared memory, C to 8
         (2, 9, 33, 16, 2, True),  # D padded to 32
         (1, 5, 17, 100, 8, True),  # D padded to 128
+        (2, 144, 144, 64, 2, False),  # the matcher's shape: no padded fragment, three key tiles
+        (2, 144, 144, 64, 2, True),
+        (2, 50, 211, 64, 2, True),  # five key tiles: the online rescaling across tiles
+        (1, 37, 211, 100, 8, True),  # chip_smoke's masked_wide case: D = 100, C = 8
+        (1, 30, 61, 100, 2, False),  # D = 100 unmasked, K = 61: a ragged second key tile
+        (1, 16, 50, 37, 8, True),  # D = 37: rows staged by 4-byte copies, C = 8
     ],
 )
 def test_match_attention_source(host_library, b, q_len, kv_len, d, c, masked):
@@ -307,6 +332,120 @@ def test_match_attention_source(host_library, b, q_len, kv_len, d, c, masked):
     assert _normwise(out, ref) <= 1e-5
     if masked:
         assert np.all(out[0] == 0.0)
+
+
+_MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include "mma_tf32.cuh"
+// One warp: C = A B (16 x 8 by 8 x 16, two m16n8k8 products) with A and B
+// as given (mode 0: the tensor core reads their top 19 bits), rounded to
+// TF32 (mode 1), or split into TF32 parts, A_s B_b + A_b B_s + A_b B_b
+// (mode 2, "3xTF32").  The fragments come from shared memory by ldmatrix:
+// A row-major, B as its transpose (16 rows of 8).
+__global__ void probe(const float* a, const float* b, float* c, int mode) {
+  __shared__ __align__(16) float a_sh[16 * 8], bt_sh[16 * 8];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 128; i += 32) {
+    a_sh[i] = a[i];
+    bt_sh[(i % 16) * 8 + i / 16] = b[i];  // b is 8 x 16 row-major
+  }
+  __syncwarp();
+  uint32_t a_raw[4], b_raw[4], a_big[4], a_small[4], b_big[4], b_small[4];
+  ldmatrix_x4(a_raw, a_sh + (lane & 15) * 8 + 4 * (lane >> 4));
+  ldmatrix_x4(b_raw, bt_sh + (lane & 15) * 8 + 4 * (lane >> 4));
+  for (int i = 0; i < 4; ++i) {
+    const float x = __uint_as_float(a_raw[i]), y = __uint_as_float(b_raw[i]);
+    a_big[i] = __float_as_uint(tf32_round(x));
+    a_small[i] = __float_as_uint(tf32_round(x - __uint_as_float(a_big[i])));
+    b_big[i] = __float_as_uint(tf32_round(y));
+    b_small[i] = __float_as_uint(tf32_round(y - __uint_as_float(b_big[i])));
+  }
+  for (int h = 0; h < 2; ++h) {  // columns 8 h .. 8 h + 7
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    if (mode == 0) {
+      mma_tf32_16x8x8(d, a_raw, b_raw[h], b_raw[h + 2]);
+    } else {
+      if (mode == 2) {
+        mma_tf32_16x8x8(d, a_small, b_big[h], b_big[h + 2]);
+        mma_tf32_16x8x8(d, a_big, b_small[h], b_small[h + 2]);
+      }
+      mma_tf32_16x8x8(d, a_big, b_big[h], b_big[h + 2]);
+    }
+    const int g = lane >> 2, t = lane & 3;
+    for (int i = 0; i < 4; ++i) c[(g + 8 * (i >> 1)) * 16 + 8 * h + 2 * t + (i & 1)] = d[i];
+  }
+}
+extern "C" int run_probe(const float* a, const float* b, float* c, int mode) {
+  probe<<<1, 32, 0, nullptr>>>(a, b, c, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" float round_tf32(float x) { return tf32_round(x); }
+"""
+
+
+def _tf32(x):
+    """float32 rounded to nearest, ties away from zero, to 10 mantissa bits
+    (cvt.rna.tf32.f32)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.fixture(scope="module")
+def mma_probe(tmp_path_factory):
+    compiler = shutil.which("g++") or shutil.which("c++")
+    if compiler is None:
+        pytest.skip("needs a C++20 host compiler (g++)")
+    work = tmp_path_factory.mktemp("mma_probe")
+    (work / "probe.cpp").write_text(_host_source(_MMA_PROBE))
+    library = work / "libprobe.so"
+    subprocess.run(
+        [compiler, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", f"-I{STUBS}",
+         "-Wno-unknown-pragmas", str(work / "probe.cpp"), "-o", str(library)],
+        check=True, capture_output=True, text=True, timeout=300,
+    )
+    lib = ctypes.CDLL(str(library))
+    lib.run_probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.round_tf32.argtypes = [ctypes.c_float]
+    lib.round_tf32.restype = ctypes.c_float
+    return lib
+
+
+@pytest.mark.parametrize("mode", ["tensor_core_reads_19_bits", "tf32", "3xtf32"])
+def test_mma_stub_tf32_product(mma_probe, mode):
+    """The host stand-in of the TF32 tensor-core product and its ldmatrix
+    loads (tests/csrc_host/mma_tf32.cuh), one 16 x 16 x 8 product against
+    numpy.  Unit-normal operands: a TF32 product is off by ~1e-3 of |C|,
+    the split product by ~1e-7."""
+    rng = np.random.default_rng(8)
+    a = rng.normal(size=(16, 8)).astype(np.float32)
+    b = rng.normal(size=(8, 16)).astype(np.float32)
+    c = np.full((16, 16), np.nan, np.float32)
+    code = ["tensor_core_reads_19_bits", "tf32", "3xtf32"].index(mode)
+    assert mma_probe.run_probe(a.ctypes.data, b.ctypes.data, c.ctypes.data, code) == 0
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    if mode == "3xtf32":
+        assert _normwise(c, exact) <= 1e-6
+        return
+    if mode == "tf32":
+        a_in, b_in = _tf32(a), _tf32(b)
+    else:  # the low 13 bits dropped
+        a_in = (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+        b_in = (b.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    # the rounded operands' product, summed in float32: to rounding
+    assert _normwise(c, a_in.astype(np.float64) @ b_in.astype(np.float64)) <= 1e-6
+    # ... and TF32 is not float32
+    assert _normwise(c, exact) >= 1e-4
+
+
+def test_tf32_rounding_ties_away_from_zero(mma_probe):
+    """The rounding the K3 host build uses (and numpy's, the probe's
+    reference): to nearest, a tie away from zero, unlike float32's ties to
+    even (1 + ulp / 2 would round to 1)."""
+    ulp = 2.0**-10  # TF32's at 1.0
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0**-23, 1 + 1.5 * ulp], np.float32)
+    expected = np.array([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp], np.float32)
+    np.testing.assert_array_equal(_tf32(x), expected)
+    np.testing.assert_array_equal(np.array([mma_probe.round_tf32(float(v)) for v in x], np.float32), expected)
 
 
 def test_match_attention_refuses_unsupported_widths(host_library):

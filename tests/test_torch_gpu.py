@@ -9,7 +9,8 @@ The file imports no JAX, so it also runs where JAX is not installed:
 (``--noconftest``: the suite's conftest configures JAX).  Tolerances,
 float32 on both sides, normwise (max |a - b| / max(1, max |b|)): K1 1e-4
 (bfloat16 H: 1e-2, one rounding of the stored H), K2 values 1e-5 and
-gradients 1e-4, K3 1e-5 with rows that have no valid key exactly zero, K1′
+gradients 1e-4, K3 1e-5 with rows that have no valid key exactly zero (its
+QK^T on the tensor cores as three TF32 products, float32 accuracy), K1′
 as K1, K4 values 1e-5 and directional derivatives 1e-4.
 """
 
@@ -151,6 +152,24 @@ def test_calibration_value_and_dirderiv_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 8191, 16384])  # one block of 8 warps; a ragged last block; the bench batch
+def test_calibration_value_and_dirderiv_kernel_at_served_batches(cuda_device, b):
+    """K4 one warp per element, with chip_smoke.py's edges: an element that
+    sees nothing reads exactly 0 and 0, and f = 0 (the exp branch's edge)."""
+    params, u, v, vis, direction = _objective_inputs(b)
+    params[1, 0] = 0.0
+    on_cpu = [params, direction, u, v, vis]
+    before = build.launch_counts["calibration_value_and_dirderiv"]
+    k_err, k_dphi = k2.calibration_value_and_dirderiv(*(x.to(cuda_device) for x in on_cpu))
+    torch.cuda.synchronize()
+    assert build.launch_counts["calibration_value_and_dirderiv"] == before + 1
+    p_err, p_dphi = k2.calibration_value_and_dirderiv(*on_cpu)
+    assert _normwise(k_err, p_err) <= 1e-5
+    assert _normwise(k_dphi, p_dphi) <= 1e-4
+    assert float(k_err[7]) == 0.0 and float(k_dphi[7]) == 0.0  # nothing visible
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     h_t, s, y, grad, updating = (x.to(cuda_device) for x in _k1_inputs(64, 7))
     with pytest.raises(ValueError):  # float64 H
@@ -166,7 +185,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,q_len,kv_len,d,c", [(96, 144, 144, 64, 2), (5, 70, 90, 40, 3), (3, 9, 200, 100, 8)])
+@pytest.mark.parametrize(
+    "b,q_len,kv_len,d,c",
+    [
+        (96, 144, 144, 64, 2),
+        (5, 70, 90, 40, 3),
+        (3, 9, 200, 100, 8),
+        (3072, 144, 144, 64, 2),  # the matcher's shape
+        (64, 37, 211, 100, 8),  # five key tiles, D = 100, C = 8
+        (4, 30, 50, 37, 2),  # D % 4 != 0: rows staged by 4-byte copies
+    ],
+)
 def test_match_attention_kernel_matches_plain(cuda_device, b, q_len, kv_len, d, c):
     g = torch.Generator().manual_seed(q_len + d)
     q = torch.randn(b, q_len, d, generator=g)
