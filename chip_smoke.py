@@ -25,7 +25,9 @@ Phases, each printed as one JSON line with its seconds:
             version at B = 16384 and 8192, with an element that sees nothing
             and elements with f <= 0, as k2;
    k1v      the K1' orderings (rowloop, rowloop2; 16 elements per block)
-            against their plain versions at B = 16384, as k1;
+            against their plain versions at B = 16384, as k1, on a
+            symmetric carry and on one that is not (K1' reduces y'H over
+            the rows; K1 takes it from Hy by symmetry);
 4. serve    the v2_600 calibration network (transformer head, embed 256,
             6 layers, 8 heads) loaded from the JAX package's numpy checkpoint,
             answering 2 requests of 1,024 generated scenes with 8 restarts
@@ -41,7 +43,9 @@ Phases, each printed as one JSON line with its seconds:
             matches; latency split, match_inlier_rate, errors, launch counts;
             then, outside the counted run, request 0's first 256 windows
             solved on vo-eval's default front end (greedy NMS anchors) and on
-            oracle matches; plus 8 windows through the front end and a
+            oracle matches, and request 0's solve again, watching K1's
+            carry (its drift from symmetry, and what K1's y'H = (Hy)'
+            changes on it); plus 8 windows through the front end and a
             5-iteration solve on the card against the CPU run;
 6. bench    one BFGS solve at bench.py's shape (B = 16384, 4 views x 8
             points, 20 iterations, backtracking capped at 6 probes);
@@ -197,12 +201,16 @@ def bound(bytes_moved, operations):
 # ---------------------------------------------------------------- K1 ----
 
 
-def k1_inputs(batch, p, h_dtype, device, seed):
-    """Symmetric positive-definite H, curvature pairs y = A s with A SPD
-    (y.s > 0), 1/16 of the elements with y.s <= 0, a mixed updating mask."""
+def k1_inputs(batch, p, h_dtype, device, seed, asymmetry=0.0):
+    """Symmetric positive-definite H (plus ``asymmetry`` times a normal
+    matrix that is not symmetric, from its own generator), curvature pairs
+    y = A s with A SPD (y.s > 0), 1/16 of the elements with y.s <= 0, a
+    mixed updating mask."""
     g = torch.Generator(device).manual_seed(seed)
     a = torch.randn(batch, p, p, generator=g, device=device) / math.sqrt(p)
     h = torch.eye(p, device=device) + a @ a.transpose(1, 2)
+    if asymmetry:
+        h += asymmetry * torch.randn(batch, p, p, generator=torch.Generator(device).manual_seed(seed + 1), device=device)
     s = 0.1 * torch.randn(batch, p, generator=g, device=device)
     b = torch.randn(batch, p, p, generator=g, device=device) / math.sqrt(p)
     y = torch.einsum("bij,bj->bi", torch.eye(p, device=device) + b @ b.transpose(1, 2), s)
@@ -217,36 +225,45 @@ def k1_inputs(batch, p, h_dtype, device, seed):
 def k1_symbol(h_dtype, variant_symbol=None):
     """The mangled-name fragment of the kernel a K1 phase times at P = 45
     and an even batch: K1's register route (one float32 element or a
-    bfloat16 pair a thread), or the K1' instantiation ``variant_symbol``."""
+    bfloat16 pair a thread), or K1''s kernel in the ordering
+    ``variant_symbol`` (16 elements a block: one element a thread)."""
     type_code = "13__nv_bfloat16" if h_dtype == torch.bfloat16 else "f"
     if variant_symbol:
-        return f"{variant_symbol}{type_code}E"
+        return f"{variant_symbol}{type_code}Li1E"
     return f"bfgs_update_rows_kernelI{type_code}Li{2 if h_dtype == torch.bfloat16 else 1}E"
 
 
 def k1_phase(batch, h_dtype, device, variant=None):
     """K1, or with ``variant = (kernel, plain, symbol)`` one of the K1'
-    orderings, against its plain version and timed."""
+    orderings, against its plain version and timed.  K1 is checked on a
+    symmetric carry (it takes y'H = (Hy)' by symmetry); K1' on that carry
+    and on one that is not symmetric (H + 0.05 N), since it reduces y'H
+    over the rows as the TPU kernels do."""
     from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.bfgs_update import fused_bfgs_update_direction, reference_update_direction
 
     kernel, plain_version, symbol = variant or (fused_bfgs_update_direction, reference_update_direction, None)
     p = 3 + 3 * N + 6 * (M - 1)
-    h_t, s, y, grad, updating = k1_inputs(batch, p, h_dtype, device, seed=batch)
-    h_bm = h_t.permute(2, 0, 1).float()
+    h_tol = 1e-2 if h_dtype == torch.bfloat16 else 1e-4  # bf16: one rounding of H+
+    checks, worst = {}, 0.0
+    for asymmetry in ((0.0, 0.05) if variant else (0.0,)):
+        h_t, s, y, grad, updating = k1_inputs(batch, p, h_dtype, device, seed=batch, asymmetry=asymmetry)
+        h_bm = h_t.permute(2, 0, 1).float()
+        carry = "nonsymmetric_" if asymmetry else ""
+        for label, first, second in (("step1", True, False), ("step2", False, True), ("later", False, False)):
+            k_h, k_d = kernel(h_t, s, y, grad, updating, first, second)
+            torch.cuda.synchronize()
+            p_h, p_d = plain_version(h_bm, s, y, grad, updating, first, second)
+            p_h = p_h.permute(1, 2, 0).to(h_dtype)
+            name = carry + label
+            checks[name] = {"H": check(f"K1 {name} H", k_h, p_h, h_tol), "d": check(f"K1 {name} d", k_d, p_d, 1e-4)}
+            worst = max(worst, checks[name]["H"]["max_abs_err"], checks[name]["d"]["max_abs_err"])
+            del k_h, p_h
 
     def plain(first, second):
         h_out, d = plain_version(h_bm, s, y, grad, updating, first, second)
         return h_out.permute(1, 2, 0).to(h_dtype), d
 
-    h_tol = 1e-2 if h_dtype == torch.bfloat16 else 1e-4  # bf16: one rounding of H+
-    checks, worst = {}, 0.0
-    for label, first, second in (("step1", True, False), ("step2", False, True), ("later", False, False)):
-        k_h, k_d = kernel(h_t, s, y, grad, updating, first, second)
-        torch.cuda.synchronize()
-        p_h, p_d = plain(first, second)
-        checks[label] = {"H": check(f"K1 {label} H", k_h, p_h, h_tol), "d": check(f"K1 {label} d", k_d, p_d, 1e-4)}
-        worst = max(worst, checks[label]["H"]["max_abs_err"], checks[label]["d"]["max_abs_err"])
     # H exceeds the L2 at every served shape but bfloat16 at B = 8192, so the
     # repeats find it cold
     ms = cuda_ms(lambda: kernel(h_t, s, y, grad, updating, False, False), reps=50)
@@ -273,7 +290,7 @@ def k1_variant(ordering):
 
     kernel = k1v.rowloop_update_direction if ordering == "rowloop" else k1v.rowloop2_update_direction
     plain = k1v.reference_rowloop if ordering == "rowloop" else k1v.reference_rowloop2
-    symbol = f"bfgs_variant_kernelILb{int(ordering == 'rowloop')}ELi16E"
+    symbol = f"bfgs_variant_rows_kernelILb{int(ordering == 'rowloop')}E"
     return (lambda *args: kernel(*args, elements_per_block=16)), plain, symbol
 
 
@@ -683,6 +700,7 @@ def frontend_serve_phase(device):
         ))
         if first is None:
             first = (windows, images, params, error)
+            first_matches = (out.matches, out.match_visibility)
     # read just after the main path, before anything else launches a kernel
     launches = dict(build.launch_counts)
     for name in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
@@ -691,6 +709,61 @@ def frontend_serve_phase(device):
     return dict(
         requests=requests, launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         subset_comparison=subset_comparison(device, network, experiment, *first),
+        carry_symmetry=carry_symmetry(device, network, *first_matches),
+    )
+
+
+def carry_symmetry(device, network, matches, visibility):
+    """Request 0's window solve run again (the same matches and draws),
+    outside the counted run, watching K1's calls: how far the carry that
+    the solve ends with has drifted from symmetry, max|H - H'| / max|H|
+    (over the batch, and the worst element's), and what K1's shortcut
+    y'H = (Hy)' changes on the last call that updated any element, against
+    K1's plain version and K1' rowloop2, which reduce y'H over the rows."""
+    import importlib
+
+    from davo_tpu_torch.ops import bfgs_update_variants as k1v
+    from davo_tpu_torch.ops.bfgs_update import channel_major_plain, reference_update_direction
+
+    solver = importlib.import_module("davo_tpu_torch.solve.bfgs")
+    k1 = solver.fused_bfgs_update_direction
+    seen = {"calls": 0}
+
+    def watch(*args):
+        out = k1(*args)
+        seen.update(calls=seen["calls"] + 1, final=out[0])
+        if not args[5] and bool(args[4].any()):  # not the first step, some element updating
+            seen["updating"] = (args, out)
+        return out
+
+    solver.fused_bfgs_update_direction = watch
+    try:
+        network(matches, visibility, generator=torch.Generator(device).manual_seed(2000))
+    finally:
+        solver.fused_bfgs_update_direction = k1
+    torch.cuda.synchronize()
+
+    def asymmetry(h):
+        h = h.float()
+        diff = (h - h.transpose(0, 1)).abs()
+        return dict(
+            batch=(diff.max() / h.abs().max()).item(),
+            worst_element=(diff.amax(dim=(0, 1)) / h.abs().amax(dim=(0, 1))).max().item(),
+        )
+
+    def normwise(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1.0)).item()
+
+    args, (k1_h, k1_d) = seen["updating"]
+    plain_h, plain_d = channel_major_plain(reference_update_direction, *args)
+    v_h, v_d = k1v.rowloop2_update_direction(*args)
+    torch.cuda.synchronize()
+    return dict(
+        k1_calls=seen["calls"], h_dtype=str(args[0].dtype).replace("torch.", ""), batch=args[0].shape[-1],
+        final_carry=asymmetry(seen["final"]), last_update_carry_in=asymmetry(args[0]),
+        last_update_share=args[4].float().mean().item(),
+        k1_against_plain=dict(h=normwise(k1_h, plain_h), d=normwise(k1_d, plain_d)),
+        rowloop2_against_plain=dict(h=normwise(v_h, plain_h), d=normwise(v_d, plain_d)),
     )
 
 

@@ -10,13 +10,24 @@ order the N&W eq. 6.20 rescale of the inverse-Hessian carry differently:
 * ``rowloop2`` reduces the raw rows and scales the two reduced vectors
   once (the ordering of the shipped K1, :mod:`.bfgs_update`).
 
-Both reduce ``yᵀ H`` on its own rather than take it from ``H y`` by
-symmetry.  They agree in exact arithmetic and round differently in
-float32.  One CUDA kernel (``csrc/bfgs_update_variants.cu``) is templated
-on the ordering, on the elements per block (16, 32 or 64, the counterparts
-of the TPU sweep's ``block_b`` 128, 256 and 512) and on the storage type of
-H (float32 or bfloat16).  Layouts are K1's: channel-major ``(P, P, B)`` H,
-batch-major ``(B, P)`` vectors.
+Both reduce ``yᵀ H`` over the rows on their own rather than take it from
+``H y`` by symmetry, so they hold on a carry that is not exactly symmetric
+(the solver's drifts by rounding; K1 takes the shortcut).  They agree in
+exact arithmetic and round differently in float32.
+
+One CUDA kernel (``csrc/bfgs_update_variants.cu``) is templated on the
+ordering and on the storage type of H (float32 or bfloat16).  It is K1's
+register route: a thread holds one row of H of one element (or of a
+bfloat16 pair) in registers, so each entry is read from device memory
+once, and yᵀH is summed over the rows through shared memory in row order,
+the TPU kernels' own.  Layouts are K1's: channel-major ``(P, P, B)`` H,
+batch-major ``(B, P)`` vectors, P ≤ 48.  ``elements_per_block`` (16, 32 or
+64, the counterparts of the TPU sweep's ``block_b`` 128, 256 and 512) is
+the elements one block walks in register tiles (16 elements, or 32 in
+packed bfloat16 pairs), one after another: float32 1, 2 or 4 tiles;
+bfloat16 16 one tile of single elements, 32 and 64 one or two tiles of
+pairs (where the batch is even and the carries 4-byte aligned; else 2 or
+4 tiles of single elements).
 
 :func:`rowloop_update_direction` and :func:`rowloop2_update_direction`
 launch the kernel for CUDA tensors and run their plain versions
@@ -41,7 +52,7 @@ __all__ = [
 ]
 
 ELEMENTS_PER_BLOCK = (16, 32, 64)
-_MAX_P = 48  # the kernel keeps a P-long partial of yᵀH in registers
+_MAX_P = 48  # the kernel holds a row of H in a thread's registers
 
 
 def _reference(scale_rows, h, step, delta_gradient, gradient, updating, is_first, is_second):

@@ -13,6 +13,12 @@ The CUDA kernel itself is held against the plain versions in
 ``test_torch_gpu.py`` (on the card) and ``test_torch_csrc_host.py`` (its
 source, compiled for the host).
 
+The TPU kernels reduce yᵀH over the rows on their own; they do not take it
+from Hy by symmetry, as K1 does.  The carry of a solve drifts from exact
+symmetry by rounding, so each ordering is also held against its TPU
+kernel on a carry that is not symmetric, H + 0.05 N with N a seeded
+normal matrix.
+
 Tolerances, float32 on both sides, normwise (max |a - b| / max(1, max |b|)):
 1e-5 for H+ and d against the ordering's own TPU kernel (the same
 arithmetic, sums in another order), 1e-4 against JAX's K1 (the other
@@ -71,10 +77,14 @@ def _pallas(kernel, h_dtype):
     return op
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, asymmetry=0.0):
+    """Symmetric positive-definite H (plus ``asymmetry`` times a normal
+    matrix that is not symmetric), curvature pairs, a mixed mask."""
     rng = np.random.default_rng(seed)
     a = rng.normal(size=(B, P, P)) / np.sqrt(P)
     h = np.eye(P) + a @ a.transpose(0, 2, 1)
+    if asymmetry:
+        h = h + asymmetry * np.random.default_rng(seed + 100).normal(size=(B, P, P))
     s = 0.1 * rng.normal(size=(B, P))
     c = rng.normal(size=(B, P, P)) / np.sqrt(P)
     y = np.einsum("bij,bj->bi", np.eye(P) + c @ c.transpose(0, 2, 1), s)  # y.s > 0
@@ -105,10 +115,25 @@ def _plain(ordering, h_t, s, y, g, upd, first, second, h_dtype):
     "name,h_dtype", [("rowloop", torch.float32), ("rowloop2", torch.float32), ("rowloop2", torch.bfloat16)]
 )
 def test_plain_matches_script_kernel(script, name, h_dtype):
+    _check_against_script_kernel(script, name, h_dtype, _inputs())
+
+
+@pytest.mark.parametrize(
+    "name,h_dtype", [("rowloop", torch.float32), ("rowloop2", torch.float32), ("rowloop2", torch.bfloat16)]
+)
+def test_plain_matches_script_kernel_on_a_nonsymmetric_carry(script, name, h_dtype):
+    """H + 0.05 N: both sides reduce yᵀH over the rows, so they agree as on
+    a symmetric carry; a plain version that took yᵀH = (Hy)ᵀ would not."""
+    h_t, s, y, g, upd = _inputs(3, asymmetry=0.05)
+    assert np.max(np.abs(h_t - h_t.transpose(1, 0, 2))) > 0.1
+    _check_against_script_kernel(script, name, h_dtype, (h_t, s, y, g, upd))
+
+
+def _check_against_script_kernel(script, name, h_dtype, inputs):
     j_dtype = jnp.bfloat16 if h_dtype == torch.bfloat16 else jnp.float32
     ordering = k1v.rowloop_update_direction if name == "rowloop" else k1v.rowloop2_update_direction
     op = _pallas(getattr(script, f"{name}_kernel"), j_dtype)
-    h_t, s, y, g, upd = _inputs()
+    h_t, s, y, g, upd = inputs
     h_in = jnp.asarray(h_t).astype(j_dtype)
     h_plain_in = np.asarray(h_in.astype(jnp.float32))
     for first, second in STEPS:

@@ -88,10 +88,15 @@ def _normwise(actual, expected):
     return float(np.max(np.abs(actual - expected)) / max(1.0, float(np.max(np.abs(expected)))))
 
 
-def _k1_problem(b, p):
+def _k1_problem(b, p, asymmetry=0.0):
+    """Symmetric positive-definite H (plus ``asymmetry`` times a seeded
+    normal matrix that is not symmetric), curvature pairs with y.s > 0
+    but on the first 20 elements, a mixed updating mask."""
     rng = np.random.default_rng(0)
     a = rng.normal(size=(b, p, p)) / np.sqrt(p)
     h = np.eye(p) + a @ a.transpose(0, 2, 1)
+    if asymmetry:
+        h = h + asymmetry * np.random.default_rng(1).normal(size=(b, p, p))
     s = 0.1 * rng.normal(size=(b, p))
     c = rng.normal(size=(b, p, p)) / np.sqrt(p)
     y = np.einsum("bij,bj->bi", np.eye(p) + c @ c.transpose(0, 2, 1), s)  # y.s > 0
@@ -189,6 +194,73 @@ def test_bfgs_update_variant_source(host_library, scale_rows, elems, bf16, first
         lambda *args: host_library.davo_bfgs_update_variant(*args, int(scale_rows), elems, None),
         *_k1_problem(b, p), bf16, plain, first, second,
     )
+
+
+# K1' on a carry that is not symmetric, H + 0.05 N: the kernel reduces
+# yᵀH over the rows, as the plain versions and the TPU kernels do.  A kernel
+# that took yᵀH from Hy, as K1 does by symmetry, fails these tests on every
+# step but the first (where no update applies): its d is off by about 5e-2
+# normwise against the 1e-4 tolerance, its H+ by about 4e-2 against 1e-4
+# (bfloat16 H: 1e-2) (test_nonsymmetric_carry_exposes_the_symmetric_shortcut).
+NONSYMMETRIC = 0.05
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("elems", [16, 32, 64])
+@pytest.mark.parametrize("scale_rows", [True, False])
+@pytest.mark.parametrize("first,second", [(True, False), (False, True), (False, False)])
+def test_bfgs_update_variant_source_on_a_nonsymmetric_carry(host_library, scale_rows, elems, bf16, first, second):
+    """Every block size (float32 1, 2 or 4 tiles of 16; bfloat16 16 single
+    elements, 32 and 64 one or two tiles of pairs), a ragged last block."""
+    plain = reference_rowloop if scale_rows else reference_rowloop2
+    _run_k1_source(
+        lambda *args: host_library.davo_bfgs_update_variant(*args, int(scale_rows), elems, None),
+        *_k1_problem(100, 45, NONSYMMETRIC), bf16, plain, first, second,
+    )
+
+
+@pytest.mark.parametrize("b,offset", [(75, 0), (64, 1)])  # an odd batch; a carry at an odd element
+@pytest.mark.parametrize("elems", [32, 64])
+@pytest.mark.parametrize("scale_rows", [True, False])
+def test_bfgs_update_variant_source_unpaired_bf16_tiles(host_library, scale_rows, elems, b, offset):
+    """bfloat16 H where no packed pair may be loaded: 2 or 4 tiles of 16
+    single elements a block, on the nonsymmetric carry."""
+    plain = reference_rowloop if scale_rows else reference_rowloop2
+    for first, second in ((False, True), (False, False)):
+        _run_k1_source(
+            lambda *args: host_library.davo_bfgs_update_variant(*args, int(scale_rows), elems, None),
+            *_k1_problem(b, 45, NONSYMMETRIC), True, plain, first, second, offset=offset,
+        )
+
+
+def _symmetric_shortcut(h, s, y, g, upd, first, second):
+    """rowloop2 with yᵀH taken as (Hy)ᵀ: what a kernel on K1's shortcut
+    would compute (batch-major)."""
+    curvature = torch.sum(s * y, dim=-1)
+    inv_c = torch.where(curvature > 0, 1.0 / torch.where(curvature > 0, curvature, 1.0), 0.0)
+    scale = torch.clamp(curvature / torch.clamp(torch.sum(y * y, dim=-1), min=1e-5), min=1e-4)
+    scale = scale if second else torch.ones_like(curvature)
+    hy = torch.einsum("bij,bj->bi", h, y) * scale[:, None]
+    coef = 1.0 + torch.sum(hy * y, dim=-1) * inv_c
+    s_on_c = s * inv_c[:, None]
+    applied = (upd & (not first)).float()[:, None, None]
+    common = coef[:, None] * s - hy
+    h_out = h * scale[:, None, None] + applied * (s_on_c[:, :, None] * common[:, None, :] - hy[:, :, None] * s_on_c[:, None, :])
+    return h_out, (-g if first else -torch.einsum("bij,bj->bi", h_out, g))
+
+
+def test_nonsymmetric_carry_exposes_the_symmetric_shortcut():
+    """On the carry of the tests above, the shortcut misses the 1e-4
+    tolerance on d on the later steps (by about 5e-2); on the symmetric
+    carry it agrees."""
+    for asymmetry, expect_miss in ((NONSYMMETRIC, True), (0.0, False)):
+        h, s, y, g, upd = _k1_problem(100, 45, asymmetry)
+        args = (torch.tensor(h, dtype=torch.float32), *(torch.tensor(x) for x in (s, y, g, upd)))
+        for first, second in ((False, True), (False, False)):
+            _, d = reference_rowloop2(*args, first, second)
+            _, d_shortcut = _symmetric_shortcut(*args, first, second)
+            miss = _normwise(d_shortcut.numpy(), d.numpy())
+            assert (miss > 1e-3) if expect_miss else (miss <= 1e-5)
 
 
 def test_bfgs_update_variant_refuses_unsupported(host_library):

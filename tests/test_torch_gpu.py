@@ -33,10 +33,12 @@ def _normwise(actual, expected):
     return float((actual - expected).abs().max() / max(1.0, float(expected.abs().max())))
 
 
-def _k1_inputs(b, p, seed=0):
+def _k1_inputs(b, p, seed=0, asymmetry=0.0):
     g = torch.Generator().manual_seed(seed)
     a = torch.randn(b, p, p, generator=g) / p**0.5
     h = torch.eye(p) + a @ a.transpose(1, 2)
+    if asymmetry:  # a normal matrix that is not symmetric, from its own generator
+        h = h + asymmetry * torch.randn(b, p, p, generator=torch.Generator().manual_seed(seed + 1))
     s = 0.1 * torch.randn(b, p, generator=g)
     c = torch.randn(b, p, p, generator=g) / p**0.5
     y = torch.einsum("bij,bj->bi", torch.eye(p) + c @ c.transpose(1, 2), s)  # y.s > 0
@@ -99,6 +101,30 @@ def test_bfgs_update_variant_kernel_matches_plain(cuda_device, ordering, h_dtype
         k_h, k_d = ordering(*on_card, first, second, elements_per_block=elements_per_block)
         torch.cuda.synchronize()
         assert build.launch_counts[name] == before + 1
+        p_h, p_d = ordering(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= (1e-2 if h_dtype == torch.bfloat16 else 1e-4)
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ordering", [k1v.rowloop_update_direction, k1v.rowloop2_update_direction])
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("elements_per_block", k1v.ELEMENTS_PER_BLOCK)
+@pytest.mark.parametrize("offset", [0, 1])  # 1: a bfloat16 carry at an odd element, no packed pairs
+def test_bfgs_update_variant_kernel_on_a_nonsymmetric_carry(cuda_device, ordering, h_dtype, elements_per_block, offset):
+    """H + 0.05 N, N not symmetric: K1′ reduces yᵀH over the rows, as its
+    plain versions and the TPU kernels do.  A kernel that took yᵀH from Hy
+    (K1's shortcut by symmetry) fails here on every step but the first:
+    its d is off by about 5e-2 normwise against the 1e-4 tolerance."""
+    h_t, s, y, grad, updating = _k1_inputs(1000, 45, seed=3, asymmetry=0.05)  # a ragged last block
+    h_t = h_t.to(h_dtype)
+    buf = torch.empty(h_t.numel() + offset, dtype=h_dtype, device=cuda_device)
+    h_card = buf[offset:].view(h_t.shape)
+    h_card.copy_(h_t)
+    on_card = [x.to(cuda_device) for x in (s, y, grad, updating)]
+    for first, second in FLAGS:
+        k_h, k_d = ordering(h_card, *on_card, first, second, elements_per_block=elements_per_block)
+        torch.cuda.synchronize()
         p_h, p_d = ordering(h_t, s, y, grad, updating, first, second)
         assert _normwise(k_h, p_h) <= (1e-2 if h_dtype == torch.bfloat16 else 1e-4)
         assert _normwise(k_d, p_d) <= 1e-4
