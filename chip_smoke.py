@@ -8,7 +8,8 @@ Phases, each printed as one JSON line with its seconds:
 2. build    nvcc builds the port's CUDA kernels (ptxas's register, stack
             and spill lines);
 3. k1, k2   each kernel against its plain PyTorch version on the card, at the
-            serve shape (B = 8192) and the bench shape (B = 16384): error
+            serve shape (B = 8192, also 32 restarts of 256 scenes), the bench
+            shape (B = 16384) and the trainer's validation batch (B = 64): error
             against the stated tolerance, time by CUDA events (``ms``: the
             wrapper's launches one by one from the host, as the solver makes
             them; ``graph_ms``: the same launches replayed from a CUDA graph,
@@ -61,7 +62,24 @@ Phases, each printed as one JSON line with its seconds:
             layers, 8 heads), 8 restarts, one eval batch and four ATE
             batches of 1,024 scenes; its JSON, the seconds per solve and the
             comparison with artifacts/eval_v4_calib.log;
-10. the kernels line, then the last line:
+10. eval_restarts  the eval proposals and selections on 256 scenes a case, one
+            solve each through the library's evaluate_calibration_ate: v4_1800
+            with 32 noise restarts and basin selection, with 8 permutation and
+            with 8 input-noise restarts (error selection), and the
+            v5_tokens8 weights (8 readout tokens, architecture read from the
+            pickle) with its tokens as the 8 starts; ATE and f_error beside the
+            JAX package's logs, seconds per solve, launches;
+11. train_check  one train step (MLP head, 3-iteration unrolled solve,
+            drop-path with injected keep-masks, float64) on the card against
+            the CPU: loss, metrics, updated parameters and running statistics;
+12. train   each calibration recipe at full width: 20 train steps and 2
+            validation batches (the reference recipe's MLP head through its
+            10-iteration unrolled solve, from a flax-style init; the curriculum
+            transformer at v4_1800's width from its weights): losses, seconds
+            per step, peak device memory, K1/K2 launches (none in the train
+            steps, whose solve is unfused as in the JAX package) and a
+            checkpoint round trip through fit (1 + 1 against 2 epochs);
+13. the kernels line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any mismatch beyond tolerance, a failed build or launch, or a kernel a
@@ -99,6 +117,9 @@ PEAK_TF32_OPS_PER_S = 495e12  # tensor cores, dense
 # path fits in about half the time limit
 SERVE_SCENES, SERVE_RESTARTS, SERVE_REQUESTS = 1024, 8, 2
 BENCH_BATCH, BENCH_ITERATIONS, BENCH_PROBES = 16384, 20, 6
+# the trainer's validation batch (K1 and K2 at 8,192 elements, 32
+# restarts of 256 scenes, are the serve shape's)
+VAL_BATCH = 64
 M, N = 4, 8
 WINDOWS, WINDOW_REQUESTS, COMPARISON_WINDOWS = 1024, 2, 256
 # vo-eval's default front end (davo_tpu/cli.py: --nms-radius 0.1, every
@@ -119,6 +140,27 @@ EVAL_V4_SOLVES = 1 + 4
 # acceptance bands around the JAX package's figures (eval_v4_calib.log:
 # 256 scenes from other random draws)
 EVAL_V4_BANDS = {"ate_rmse_mean": (0.19, 0.28), "f_error_mean": (0.12, 0.20)}
+# the eval proposals and selections: 256 scenes a case, each beside the
+# JAX package's log (256 scenes from jax.random draws) within a wide band
+V5_CHECKPOINT = os.path.join(REPO, "artifacts", "calibration_transformer_v5_tokens8.pkl")
+EVAL_RESTART_SCENES = 256
+EVAL_RESTART_CASES = [
+    ("v4_1800 noise x32 basin", V4_CHECKPOINT, dict(num_restarts=32, restart_proposals="noise", selection="basin"),
+     ("eval_v4_calib_r32basin.log", None)),
+    ("v4_1800 permutation x8 error", V4_CHECKPOINT,
+     dict(num_restarts=8, restart_proposals="permutation", selection="error"), ("eval_v4_perm8.log", None)),
+    ("v4_1800 input_noise x8 error", V4_CHECKPOINT,
+     dict(num_restarts=8, restart_proposals="input_noise", selection="error"),
+     ("recipe_evals_r4.log", "v4 + input_noise @8 error")),
+    ("v5_tokens8 tokens x8 error", V5_CHECKPOINT, dict(num_restarts=8, restart_proposals="tokens", selection="error"),
+     ("recipe_evals_r5.log", "v5t_tokens8_error")),
+]
+EVAL_RESTART_BAND = (0.6, 1.5)  # times the JAX figure
+# training: one step on the card against the CPU (float64), then each
+# recipe's steps, validation and a checkpoint round trip
+TRAIN_CHECK_TOL = 1e-8
+TRAIN_STEPS, TRAIN_VAL_BATCHES = 20, 2
+RESUME_EVAL_ITERATIONS, RESUME_TOL = 10, 1e-6
 
 
 def emit(phase, **fields):
@@ -183,9 +225,11 @@ def ptxas_resources(lines, symbol):
 
 
 def check(name, actual, expected, tol):
-    """Normwise relative error ``max|a - e| / max(1, max|e|)`` within tol."""
-    diff = (actual.float() - expected.float()).abs().max().item()
-    scale = max(1.0, expected.float().abs().max().item())
+    """Normwise relative error ``max|a - e| / max(1, max|e|)`` within tol,
+    taken in float64 (float32 rounding would hide a float64 check's
+    differences)."""
+    diff = (actual.double() - expected.double()).abs().max().item()
+    scale = max(1.0, expected.double().abs().max().item())
     rel = diff / scale
     if not math.isfinite(rel) or rel > tol:
         raise AssertionError(f"{name}: max abs diff {diff} (normwise {rel}) exceeds {tol}")
@@ -984,11 +1028,266 @@ def eval_v4_phase(device):
             raise AssertionError(f"the eval entry never launched kernel {name}")
     if not all(math.isfinite(v) for v in result.values()):
         raise AssertionError(f"eval_v4: non-finite metrics {result}")
+    assert_within_bands("eval_v4", result, EVAL_V4_BANDS)
     return dict(
         result=result, launches=launches, seconds_per_solve=seconds / EVAL_V4_SOLVES, solves=EVAL_V4_SOLVES,
         jax_reference=reference, jax_reference_source="artifacts/eval_v4_calib.log (256 scenes, jax.random draws)",
-        within_band={k: lo <= result[k] <= hi for k, (lo, hi) in EVAL_V4_BANDS.items()}, bands=EVAL_V4_BANDS,
+        bands=EVAL_V4_BANDS,
     )
+
+
+def assert_within_bands(name, result, bands):
+    """Fail unless each banded figure of ``result`` lies in its band."""
+    outside = {k: (result[k], band) for k, band in bands.items() if not band[0] <= result[k] <= band[1]}
+    if outside:
+        raise AssertionError(f"{name}: figures outside their bands (figure, band): {outside}")
+
+
+# ----------------------------------------------------- eval restarts ----
+
+
+def jax_reference(log, case=None):
+    """The JAX package's figures in one of its eval logs: the last JSON
+    line, or the line of ``case`` (by its ``case`` field, or the JSON line
+    after the header ``=== case ===``)."""
+    with open(os.path.join(REPO, "artifacts", log)) as f:
+        lines = f.read().splitlines()
+    if case is None:
+        return json.loads([line for line in lines if line.startswith("{")][-1])
+    for i, line in enumerate(lines):
+        if line.startswith("{") and json.loads(line).get("case") == case:
+            return json.loads(line)
+        if line.strip() == f"=== {case} ===":
+            return json.loads(lines[i + 1])
+    raise KeyError(f"{case!r} is not in {log}")
+
+
+def restart_network(device, checkpoint, scenes, **fields):
+    """The curriculum preset's network and experiment at ``checkpoint``'s
+    architecture (read from its arrays), its weights loaded through a
+    checkpoint directory that links it (as the eval entry reads one)."""
+    import dataclasses
+
+    from davo_tpu_torch.models import checkpoint_architecture, load_flax_weights
+    from davo_tpu_torch.train import get_preset, restore_checkpoint
+
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        os.symlink(checkpoint, os.path.join(checkpoint_dir, "checkpoint_1.pkl"))
+        restored = restore_checkpoint(checkpoint_dir)
+    arch = checkpoint_architecture(restored["params"])
+    arch.pop("head")
+    config = dataclasses.replace(
+        get_preset("calibration_transformer_curriculum"), num_views=M, num_points=N, batch_size=scenes,
+        **arch, **fields,
+    )
+    network = config.build_network(device)
+    load_flax_weights(network, restored["params"], restored.get("batch_stats"))
+    return network, config
+
+
+def eval_restarts_phase(device):
+    """The eval proposals and selections at full width: for each case the
+    library's evaluate_calibration_ate on one batch of 256 scenes (one
+    solve of 256 x restarts elements), its launches counted from 0 just
+    before it, its figures beside the JAX package's log."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import evaluate_calibration_ate
+
+    cases = []
+    for name, checkpoint, fields, (log, log_case) in EVAL_RESTART_CASES:
+        network, config = restart_network(device, checkpoint, EVAL_RESTART_SCENES, **fields)
+        reference = jax_reference(log, log_case)
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = evaluate_calibration_ate(network, config, config.seed, batches=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = dict(build.launch_counts)
+        for counter in ("bfgs_update", "calibration_value_and_grad"):
+            if launches[counter] <= 0:
+                raise AssertionError(f"eval_restarts {name}: never launched kernel {counter}")
+        if not all(math.isfinite(v) for v in result.values()):
+            raise AssertionError(f"eval_restarts {name}: non-finite figures {result}")
+        bands = {k: (EVAL_RESTART_BAND[0] * reference[k], EVAL_RESTART_BAND[1] * reference[k])
+                 for k in ("ate_rmse_mean", "f_error_mean")}
+        cases.append(dict(
+            case=name, scenes=EVAL_RESTART_SCENES, elements=EVAL_RESTART_SCENES * config.num_restarts, **fields,
+            ate_rmse_mean=result["ate_rmse_mean"], ate_rmse_median=result["ate_rmse_median"],
+            f_error_mean=result["f_error_mean"], seconds_per_solve=seconds, launches=launches,
+            jax_reference={k: reference[k] for k in ("ate_rmse_mean", "ate_rmse_median", "f_error_mean")},
+            jax_reference_source=f"artifacts/{log}" + (f" ({log_case})" if log_case else ""), bands=bands,
+        ))
+        assert_within_bands(f"eval_restarts {name}", result, bands)
+        del network
+        torch.cuda.empty_cache()
+    return dict(cases=cases)
+
+
+# ------------------------------------------------------------ training ----
+
+
+def fixed_batch_experiment(batch, **fields):
+    """A CalibrationExperiment whose batches are ``batch`` (moved to the
+    device asked for), whatever generator draws them."""
+    import dataclasses
+
+    from davo_tpu_torch.train import CalibrationExperiment
+    from davo_tpu_torch.types import CameraViewsAndPoints
+
+    @dataclasses.dataclass(frozen=True)
+    class FixedBatch(CalibrationExperiment):
+        def make_batch_fn(self, device=None):
+            moved = CameraViewsAndPoints(*(x.to(device) for x in batch))
+            return lambda generator, batch_size: moved
+
+    return FixedBatch(**fields)
+
+
+def train_check_phase(device):
+    """One train step on the card and one on the CPU, float64, from the
+    same flax-style weights, the same batch and the same keep-masks (drawn
+    once on the CPU): the MLP head (hidden 32) through a 3-iteration
+    unrolled solve with drop-path 0.1, batch 16.  The loss, the metrics,
+    the updated parameters and the running statistics agree to
+    TRAIN_CHECK_TOL relative (to the largest entry of each); neither
+    kernel runs (the training solve is unfused, as in the JAX package)."""
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.solve import BFGSConfig
+    from davo_tpu_torch.train import create_train_state, make_train_step
+
+    batch_size, iterations = 16, 3
+    batch = generate_batch(torch.Generator("cpu").manual_seed(5), batch_size,
+                           SceneConfig(num_views=M, num_points=N, dtype=torch.float64), device="cpu")
+    keep_masks = torch.rand(iterations, batch_size, generator=torch.Generator("cpu").manual_seed(6)) > 0.1
+    config = fixed_batch_experiment(
+        batch, num_views=M, num_points=N, hidden_size=32, batch_size=batch_size, dtype=torch.float64,
+        solver=BFGSConfig(error_threshold=1e-7, training_error_threshold=1e-3, iterations=100,
+                          training_iterations=iterations, line_search_iterations=50, drop_path_p=0.1),
+    )
+    out = []
+    for dev in (device, torch.device("cpu")):
+        state = create_train_state(config, dev)
+        build.reset_launch_counts()
+        metrics = make_train_step(state, config)(torch.Generator(dev).manual_seed(0), keep_masks=keep_masks)
+        launches = dict(build.launch_counts)
+        if any(launches.values()):
+            raise AssertionError(f"train_check: the train step launched kernels {launches}")
+        out.append((metrics, {k: v.detach().cpu() for k, v in state.network.state_dict().items()}))
+    (metrics, weights), (cpu_metrics, cpu_weights) = out
+    checks = {name: check(f"train_check {name}", metrics[name].cpu(), cpu_metrics[name], TRAIN_CHECK_TOL)
+              for name in cpu_metrics}
+    worst = 0.0
+    for name, value in cpu_weights.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        worst = max(worst, check(f"train_check {name}", weights[name], value, TRAIN_CHECK_TOL)["normwise_rel_err"])
+    return dict(batch=batch_size, training_iterations=iterations, dtype="float64", tolerance=TRAIN_CHECK_TOL,
+                metrics=checks, worst_parameter_or_statistic_normwise=worst,
+                loss_card=float(metrics["loss"]), loss_cpu=float(cpu_metrics["loss"]))
+
+
+def train_recipe(device, name, config, initial=None):
+    """TRAIN_STEPS train steps of ``config`` at full width (from a
+    flax-style init, or from ``initial``'s weights), then
+    TRAIN_VAL_BATCHES validation batches; each part's launches counted
+    from 0 just before it."""
+    from davo_tpu_torch.models import load_flax_weights
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import batch_generator, create_train_state, make_eval_step, make_train_step
+
+    state = create_train_state(config, device)
+    if initial is not None:
+        load_flax_weights(state.network, initial["params"], initial.get("batch_stats"))
+    train_step, eval_step = make_train_step(state, config), make_eval_step(state.network, config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    losses, seconds = [], []
+    for i in range(TRAIN_STEPS):
+        start = time.perf_counter()
+        metrics = train_step(batch_generator(device, config.seed, 0, 0, i))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        losses.append(float(metrics["loss"]))
+    train_launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    val = [eval_step(batch_generator(device, config.seed, 0, 1, j)) for j in range(TRAIN_VAL_BATCHES)]
+    torch.cuda.synchronize()
+    val_seconds = (time.perf_counter() - start) / TRAIN_VAL_BATCHES
+    val_launches = dict(build.launch_counts)
+    if not (math.isfinite(losses[0]) and math.isfinite(losses[-1])):
+        raise AssertionError(f"train {name}: non-finite loss {losses[0]}, {losses[-1]}")
+    if any(train_launches.values()):
+        raise AssertionError(f"train {name}: the train steps launched kernels {train_launches}")
+    for counter in ("bfgs_update", "calibration_value_and_grad"):
+        if val_launches[counter] <= 0:
+            raise AssertionError(f"train {name}: validation never launched kernel {counter}")
+    val_metrics = {k: float(torch.mean(torch.stack([m[k] for m in val]))) for k in val[0]}
+    if not all(math.isfinite(v) for v in val_metrics.values()):
+        raise AssertionError(f"train {name}: non-finite validation metrics {val_metrics}")
+    tail = sorted(seconds[-10:])
+    return dict(
+        recipe=name, steps=TRAIN_STEPS, batch=config.batch_size, training_iterations=config.solver.training_iterations,
+        drop_path_p=config.solver.drop_path_p, first_loss=losses[0], last_loss=losses[-1],
+        median_step_s_last10=(tail[4] + tail[5]) / 2, first_step_s=seconds[0], peak_memory_gb=peak,
+        train_launches=train_launches, val_batches=TRAIN_VAL_BATCHES, val_s_per_batch=val_seconds,
+        val_launches=val_launches, val_metrics=val_metrics, resume=resume_check(device, config),
+    )
+
+
+def resume_check(device, config):
+    """fit for 1 + 1 epochs through a checkpoint directory against 2
+    uninterrupted epochs (2 train batches and 1 validation batch an epoch;
+    the validation solve cut to RESUME_EVAL_ITERATIONS iterations): the
+    resumed epoch's metrics against the uninterrupted second epoch's."""
+    import dataclasses
+
+    from davo_tpu_torch.train import fit
+
+    small = dataclasses.replace(
+        config, epochs=2, batches_per_epoch=2, val_batches=1,
+        solver=dataclasses.replace(config.solver, iterations=RESUME_EVAL_ITERATIONS),
+    )
+    _, whole = fit(small, device=device)
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        fit(small, epochs=1, device=device, checkpoint_dir=checkpoint_dir)
+        _, resumed = fit(small, device=device, checkpoint_dir=checkpoint_dir)
+    worst = 0.0
+    for split in ("train", "val"):
+        for key, value in whole[split][1].items():
+            if key != "epoch_seconds":
+                worst = max(worst, abs(resumed[split][0][key] - value) / max(abs(value), 1e-30))
+    if len(resumed["train"]) != 1 or worst > RESUME_TOL:
+        raise AssertionError(f"resume: the resumed epoch differs from the uninterrupted one by {worst}")
+    return dict(epochs="1 + 1 against 2", worst_relative_diff=worst, tolerance=RESUME_TOL, equal=worst == 0.0)
+
+
+def train_phase(device):
+    """The two training recipes at full width: (a) the reference recipe
+    calibration_from_oracle_matches (MLP head, hidden 256, batch 64, a
+    10-iteration unrolled solve with drop-path 0.1) from a flax-style
+    init; (b) calibration_transformer_curriculum at v4_1800's width (embed
+    448, 10 layers, 8 heads; the guess trained alone) from the v4_1800
+    weights."""
+    import dataclasses
+
+    from davo_tpu_torch.models import checkpoint_architecture, load_numpy_checkpoint
+    from davo_tpu_torch.train import get_preset
+
+    reference = get_preset("calibration_from_oracle_matches")
+    v4 = load_numpy_checkpoint(V4_CHECKPOINT)
+    arch = checkpoint_architecture(v4["params"])
+    arch.pop("head")
+    curriculum = dataclasses.replace(get_preset("calibration_transformer_curriculum"), **arch)
+    recipes = [train_recipe(device, "calibration_from_oracle_matches", reference)]
+    torch.cuda.empty_cache()
+    recipes.append(train_recipe(device, "calibration_transformer_curriculum (v4_1800)", curriculum, initial=v4))
+    return dict(recipes=recipes)
 
 
 def main():
@@ -1023,8 +1322,10 @@ def main():
         ("k1_serve_f32", lambda: k1_phase(SERVE_SCENES * SERVE_RESTARTS, torch.float32, device)),
         ("k1_bench_f32", lambda: k1_phase(BENCH_BATCH, torch.float32, device)),
         ("k1_bench_bf16", lambda: k1_phase(BENCH_BATCH, torch.bfloat16, device)),
+        ("k1_val_f32", lambda: k1_phase(VAL_BATCH, torch.float32, device)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
+        ("k2_val", lambda: k2_phase(VAL_BATCH, device)),
         ("k3", lambda: k3_phase(device)),
         ("k4_bench", lambda: k4_phase(BENCH_BATCH, device)),
         ("k4_serve", lambda: k4_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
@@ -1062,6 +1363,9 @@ def main():
         ("fused_objective", lambda: fused_objective_phase(device)),
         ("k1_tune", lambda: k1_tune_phase(device)),
         ("eval_v4", lambda: eval_v4_phase(device)),
+        ("eval_restarts", lambda: eval_restarts_phase(device)),
+        ("train_check", lambda: train_check_phase(device)),
+        ("train", lambda: train_phase(device)),
     ):
         t0 = time.perf_counter()
         paths[label] = fn()

@@ -1,6 +1,9 @@
 from .calibration import (
+    BasinScoreConfig,
     CalibrationParameters,
+    basin_score,
     calibration_error,
+    calibration_residuals,
     get_camera_relative_points,
     num_calibration_parameters,
     pack_calibration_parameters,
@@ -13,8 +16,11 @@ from .calibration_fast import (
 )
 
 __all__ = [
+    "BasinScoreConfig",
     "CalibrationParameters",
+    "basin_score",
     "calibration_error",
+    "calibration_residuals",
     "get_camera_relative_points",
     "num_calibration_parameters",
     "pack_calibration_parameters",

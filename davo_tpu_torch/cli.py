@@ -1,18 +1,29 @@
-"""Command-line entry of the port (the ``eval`` subcommand of
+"""Command-line entry of the port (the ``fit`` and ``eval`` subcommands of
 ``davo_tpu/cli.py``).
 
+    python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
+        --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
     python -m davo_tpu_torch.cli eval --preset calibration_transformer_curriculum \\
         --checkpoint-dir <dir holding checkpoint_<step>.pkl> \\
-        --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8
+        --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8 \\
+        [--restart-proposals noise|permutation|input_noise|tokens] [--selection error|basin] \\
+        [--basin-anchor W] [--guess-tokens E]
 
-``eval`` builds the preset's network (random weights from ``--seed``
-unless ``--checkpoint-dir`` names a checkpoint), solves ``--batches``
-batches of ``--batch-size`` scenes for the eval metrics and four more for
-the trajectory accuracy, and prints one JSON line: the mean eval metrics
-and ``ate_rmse_mean``, ``ate_rmse_median``, ``f_error_mean`` and
-``centre_error_mean``.  It runs on the card; ``--platform cpu`` selects the
-CPU.  Scenes are drawn by ``torch.Generator``s seeded from ``--seed``, not
-by ``jax.random``, so the figures match the JAX package's statistically.
+``fit`` trains the preset (``train/calibration.py::fit``: checkpoints of
+the whole state every 25 epochs and at the end in ``--checkpoint-dir``,
+which a later ``fit`` resumes from), prints a JSON line per split and
+epoch (also appended to ``--metrics-file``), the path of the final
+checkpoint (``checkpoint_<global epochs>.pkl``, which ``eval`` and the JAX
+package's ``restore_checkpoint`` read) and ``{"final_val": ...}`` last.
+``eval`` builds the preset's network (flax-style random weights from
+``--seed`` unless ``--checkpoint-dir`` names a checkpoint), solves
+``--batches`` batches of ``--batch-size`` scenes for the eval metrics and
+four more for the trajectory accuracy, and prints one JSON line: the mean
+eval metrics and ``ate_rmse_mean``, ``ate_rmse_median``, ``f_error_mean``
+and ``centre_error_mean``.  Both run on the card; ``--platform cpu``
+selects the CPU.  Scenes are drawn by ``torch.Generator``s seeded from
+``--seed``, not by ``jax.random``, so the figures match the JAX package's
+statistically.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -31,13 +43,20 @@ _PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's common flags that ``eval`` reads."""
+    """The JAX CLI's common flags."""
     p.add_argument("--preset", default="calibration_from_oracle_matches")
+    p.add_argument("--config", default=None, help="YAML experiment config (not ported yet)")
+    p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--batches-per-epoch", type=int, default=None)
+    p.add_argument("--val-batches", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
+    p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
     p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
     p.add_argument("--head", default=None, help="guess head: mlp | transformer")
+    p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--hidden-size", type=int, default=None)
     p.add_argument("--transformer-layers", type=int, default=None)
     p.add_argument("--transformer-heads", type=int, default=None)
@@ -47,9 +66,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _apply_overrides(config, args):
+    if args.config:
+        raise NotImplementedError("--config: YAML experiment configs are not ported yet (ROADMAP.md Queue 1 item 8)")
     updates = {}
-    for field in ("batch_size", "seed", "head", "hidden_size", "transformer_layers", "transformer_heads",
-                  "guess_tokens"):
+    for field in ("epochs", "batch_size", "batches_per_epoch", "val_batches", "seed", "head", "learning_rate",
+                  "hidden_size", "transformer_layers", "transformer_heads", "guess_tokens"):
         value = getattr(args, field, None)
         if value is not None:
             updates[field] = value
@@ -61,13 +82,16 @@ def _apply_overrides(config, args):
 def _build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="davo_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    fit_p = sub.add_parser("fit", help="train a preset experiment")
+    _add_common(fit_p)
     eval_p = sub.add_parser("eval", help="evaluate a trained checkpoint")
     _add_common(eval_p)
     eval_p.add_argument("--batches", type=int, default=16)
     eval_p.add_argument("--restarts", type=int, default=None, help="multi-start eval solves")
     eval_p.add_argument("--selection", default=None, help="restart selection: error | basin")
-    eval_p.add_argument("--restart-proposals", default=None, help="restart proposals: noise | permutation")
-    # read by basin selection only, which raises until it is ported
+    eval_p.add_argument(
+        "--restart-proposals", default=None, help="restart proposals: noise | permutation | input_noise | tokens"
+    )
     eval_p.add_argument(
         "--basin-anchor", type=float, default=None, help="basin-score pull towards the guess focal (0 disables)"
     )
@@ -76,13 +100,16 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     """Parse ``argv`` and run the subcommand; returns what :func:`main`
-    prints."""
+    prints last."""
     args = _build_parser().parse_args(argv)
-    from davo_tpu_torch.models import flax_to_state_dict
+    from davo_tpu_torch.models import load_flax_weights
     from davo_tpu_torch.train import (
+        MetricsLogger,
         batch_generator,
         evaluate_calibration_ate,
+        fit,
         get_preset,
+        latest_step,
         make_eval_step,
         restore_checkpoint,
     )
@@ -92,22 +119,27 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         raise ValueError(f"--platform must be one of {sorted(_PLATFORMS)}, got {args.platform!r}")
     device = resolve_device(None if args.platform is None else _PLATFORMS[args.platform])
     config = _apply_overrides(get_preset(args.preset), args)
+    logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir)
+
+    if args.command == "fit":
+        _, history = fit(config, log_fn=logger, checkpoint_dir=args.checkpoint_dir, device=device)
+        if args.checkpoint_dir:
+            step = latest_step(args.checkpoint_dir)
+            print(f"checkpoint: {os.path.join(os.path.abspath(args.checkpoint_dir), f'checkpoint_{step}.pkl')}", flush=True)
+        return {"final_val": history["val"][-1] if history["val"] else {}}
+
     if args.restarts:
         config = dataclasses.replace(config, num_restarts=args.restarts)
     if args.selection:
         config = dataclasses.replace(config, selection=args.selection)
     if args.restart_proposals:
         config = dataclasses.replace(config, restart_proposals=args.restart_proposals)
-    torch.manual_seed(config.seed)  # the weights' initialisation, without a checkpoint
-    # raises NotImplementedError for the selections and proposals still to port
-    network = config.build_network(device)
+    if args.basin_anchor is not None:
+        config = dataclasses.replace(config, basin_anchor_weight=args.basin_anchor)
+    network = config.build_network(device, generator=batch_generator("cpu", config.seed))
     if args.checkpoint_dir:
         restored = restore_checkpoint(args.checkpoint_dir)
-        state = flax_to_state_dict(restored["params"], restored.get("batch_stats"))
-        for key, value in network.state_dict().items():
-            if key.endswith("num_batches_tracked"):  # BatchNorm's counter has no flax counterpart
-                state[key] = value
-        network.load_state_dict(state, strict=True)
+        load_flax_weights(network, restored["params"], restored.get("batch_stats"))
     eval_step = make_eval_step(network, config)
     metrics = [eval_step(batch_generator(device, config.seed, 1000 + i)) for i in range(args.batches)]
     result = {k: float(torch.mean(torch.stack([m[k] for m in metrics]))) for k in metrics[0]}

@@ -2,10 +2,15 @@ from .calibration_network import (
     CalibrationMLPHead,
     CalibrationNetwork,
     CalibrationTransformerHead,
+    flax_style_init_,
+    permutation_restart_guesses,
 )
 from .convert import (
     FRONTEND_V4,
+    checkpoint_architecture,
     flax_to_state_dict,
+    load_flax_weights,
+    state_dict_to_flax,
     frontend_state_dict,
     load_calibration_network,
     load_frontend,
@@ -20,8 +25,13 @@ __all__ = [
     "CalibrationMLPHead",
     "CalibrationNetwork",
     "CalibrationTransformerHead",
+    "flax_style_init_",
+    "permutation_restart_guesses",
     "FRONTEND_V4",
+    "checkpoint_architecture",
     "flax_to_state_dict",
+    "load_flax_weights",
+    "state_dict_to_flax",
     "frontend_state_dict",
     "load_calibration_network",
     "load_frontend",

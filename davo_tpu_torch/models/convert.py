@@ -11,6 +11,15 @@ holds them) onto :class:`CalibrationNetwork`'s ``state_dict``:
 * ``LayerNorm`` and ``BatchNorm`` ``scale`` become ``weight``; BatchNorm's
   ``batch_stats`` ``mean``/``var`` become the running statistics.
 
+:func:`state_dict_to_flax` is the reverse map, from the port's
+``state_dict`` (or a dict of tensors keyed as it is, such as the
+optimiser's moments) to flax-named numpy ``params`` and ``batch_stats``:
+the port's checkpoints are written in the JAX package's format with it.
+:func:`checkpoint_architecture` reads a guess head's architecture (head,
+width, layers, heads, readout tokens) from its flax parameters, so
+:func:`load_calibration_network` builds, for example, the v5_tokens8
+network (8 readout tokens of width 384) from its pickle alone.
+
 :func:`load_numpy_checkpoint` reads a checkpoint pickle with an unpickler
 that admits numpy's array globals and nothing else, so it never imports
 JAX.  The pickles of plain numpy arrays (``calibration_transformer_300.pkl``
@@ -47,7 +56,10 @@ from .calibration_network import CalibrationNetwork
 from .vo_frontend import VOFrontend
 
 __all__ = [
+    "checkpoint_architecture",
     "flax_to_state_dict",
+    "load_flax_weights",
+    "state_dict_to_flax",
     "load_numpy_checkpoint",
     "load_calibration_network",
     "FRONTEND_V4",
@@ -149,15 +161,105 @@ def flax_to_state_dict(
             i += 1
         sd.update(_norm(f"{pre}.ln_out", head["ln_out"]))
     else:
-        stats = (batch_stats or {})["initial_estimator"]
+        # without batch_stats (a tree of optimiser moments) no running statistics
+        stats = (batch_stats or {}).get("initial_estimator")
         for name in ("dense_1", "dense_2"):
             sd.update(_linear(f"{pre}.{name}", head[name]))
         for name in ("norm_1", "norm_2"):
             sd.update(_norm(f"{pre}.{name}", head[name]))
-            sd[f"{pre}.{name}.running_mean"] = np.asarray(stats[name]["mean"])
-            sd[f"{pre}.{name}.running_var"] = np.asarray(stats[name]["var"])
+            if stats is not None:
+                sd[f"{pre}.{name}.running_mean"] = np.asarray(stats[name]["mean"])
+                sd[f"{pre}.{name}.running_var"] = np.asarray(stats[name]["var"])
     sd.update(_linear(f"{pre}.head", head["head"]))
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def _unlinear(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _numpy(sd[f"{prefix}.weight"]).T, "bias": _numpy(sd[f"{prefix}.bias"])}
+
+
+def _unnorm(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _numpy(sd[f"{prefix}.weight"]), "bias": _numpy(sd[f"{prefix}.bias"])}
+
+
+def _unattention(sd: Mapping, prefix: str, num_heads: int) -> Dict[str, dict]:
+    out = {}
+    for name in ("query", "key", "value"):
+        weight = _numpy(sd[f"{prefix}.{name}.weight"])  # (heads * head_dim, d)
+        out[name] = {
+            "kernel": weight.T.reshape(weight.shape[1], num_heads, -1),
+            "bias": _numpy(sd[f"{prefix}.{name}.bias"]).reshape(num_heads, -1),
+        }
+    weight = _numpy(sd[f"{prefix}.out.weight"])  # (d, heads * head_dim)
+    out["out"] = {"kernel": weight.T.reshape(num_heads, -1, weight.shape[0]), "bias": _numpy(sd[f"{prefix}.out.bias"])}
+    return out
+
+
+def _numpy(x) -> np.ndarray:
+    """A copy: a CPU tensor's ``numpy()`` shares the parameter's memory,
+    which the optimiser updates in place."""
+    return x.detach().cpu().numpy().copy() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+def state_dict_to_flax(state_dict: Mapping, *, num_heads: Optional[int] = None) -> Tuple[dict, dict]:
+    """Flax-named numpy ``(params, batch_stats)`` of a port
+    :class:`CalibrationNetwork` ``state_dict``: the reverse of
+    :func:`flax_to_state_dict`.  ``num_heads`` splits the transformer
+    head's attention projections (required for that head).  Keys without
+    running statistics (an optimiser's moments keyed by parameter name)
+    give empty ``batch_stats``."""
+    pre = "initial_estimator"
+    head: dict = {}
+    stats: dict = {}
+    if f"{pre}.pixel_embed.weight" in state_dict:
+        if num_heads is None:
+            raise ValueError("num_heads is required to split the transformer head's attention kernels")
+        head["pixel_embed"] = _unlinear(state_dict, f"{pre}.pixel_embed")
+        for name in ("view_embedding", "point_embedding", "readout_token"):
+            head[name] = _numpy(state_dict[f"{pre}.{name}"])
+        i = 0
+        while f"{pre}.layers.{i}.ln_a.weight" in state_dict:
+            layer = f"{pre}.layers.{i}"
+            head[f"ln_a_{i}"] = _unnorm(state_dict, f"{layer}.ln_a")
+            head[f"attn_{i}"] = _unattention(state_dict, f"{layer}.attn", num_heads)
+            head[f"ln_m_{i}"] = _unnorm(state_dict, f"{layer}.ln_m")
+            head[f"mlp_in_{i}"] = _unlinear(state_dict, f"{layer}.mlp_in")
+            head[f"mlp_out_{i}"] = _unlinear(state_dict, f"{layer}.mlp_out")
+            i += 1
+        head["ln_out"] = _unnorm(state_dict, f"{pre}.ln_out")
+    else:
+        for name in ("dense_1", "dense_2"):
+            head[name] = _unlinear(state_dict, f"{pre}.{name}")
+        for name in ("norm_1", "norm_2"):
+            head[name] = _unnorm(state_dict, f"{pre}.{name}")
+            if f"{pre}.{name}.running_mean" in state_dict:
+                stats[name] = {
+                    "mean": _numpy(state_dict[f"{pre}.{name}.running_mean"]),
+                    "var": _numpy(state_dict[f"{pre}.{name}.running_var"]),
+                }
+    head["head"] = _unlinear(state_dict, f"{pre}.head")
+    return {pre: head}, ({pre: stats} if stats else {})
+
+
+def checkpoint_architecture(params: Mapping) -> Dict[str, object]:
+    """The :class:`CalibrationNetwork` keywords that fix the guess head's
+    shape, read from its flax ``params``: ``head``, ``hidden_size`` and,
+    for the transformer head, ``transformer_layers``,
+    ``transformer_heads`` and ``guess_tokens``."""
+    head = params["initial_estimator"]
+    if "pixel_embed" not in head:
+        return dict(head="mlp", hidden_size=int(np.shape(head["dense_1"]["kernel"])[1]))
+    readout = np.shape(head["readout_token"])  # (E, d)
+    layers = 0
+    while f"attn_{layers}" in head:
+        layers += 1
+    return dict(
+        head="transformer",
+        hidden_size=int(readout[1]),
+        transformer_layers=layers,
+        transformer_heads=int(np.shape(head["attn_0"]["query"]["kernel"])[1]),
+        guess_tokens=int(readout[0]),
+    )
 
 
 def load_calibration_network(
@@ -166,17 +268,25 @@ def load_calibration_network(
     device: Optional[Union[str, torch.device]] = None,
     **network_kwargs,
 ) -> CalibrationNetwork:
-    """Build a :class:`CalibrationNetwork` from ``network_kwargs`` and load a
-    numpy-only checkpoint of the JAX package's weights into it."""
+    """Build a :class:`CalibrationNetwork` and load a numpy-only checkpoint
+    of the JAX package's weights into it.  The head's architecture comes
+    from :func:`checkpoint_architecture` where ``network_kwargs`` leaves it
+    out."""
     checkpoint = load_numpy_checkpoint(path)
+    network_kwargs = {**checkpoint_architecture(checkpoint["params"]), **network_kwargs}
     network = CalibrationNetwork(device=device, **network_kwargs)
-    state = flax_to_state_dict(checkpoint["params"], checkpoint.get("batch_stats"))
+    load_flax_weights(network, checkpoint["params"], checkpoint.get("batch_stats"))
+    return network
+
+
+def load_flax_weights(network: CalibrationNetwork, params: Mapping, batch_stats: Optional[Mapping] = None) -> None:
+    """Load flax ``params`` (and ``batch_stats``) into ``network``, in place."""
+    state = flax_to_state_dict(params, batch_stats)
     # BatchNorm's step counter has no flax counterpart; keep the module's own
     for key, value in network.state_dict().items():
         if key.endswith("num_batches_tracked"):
             state[key] = value
     network.load_state_dict(state, strict=True)
-    return network
 
 
 def load_frontend_npz(path: Union[str, Path]) -> dict:

@@ -1,18 +1,31 @@
-"""Batched BFGS with a line search — the eval (non-differentiable) path of
-``davo_tpu/solve/bfgs.py``.
+"""Batched BFGS with a line search (the port of ``davo_tpu/solve/bfgs.py``).
 
 The whole batch of independent problems advances in lockstep; an
 ``updating`` mask tracks per-element convergence and frozen elements keep
-their last value.  Each iteration makes one value+gradient evaluation
-(kernel K2 through the ``value_and_grad_fn`` hook, or autograd over
-``error_function``), one fused Hessian update + direction (kernel K1 on a
-channel-major ``(P, P, B)`` carry) and one line search.  The loop tests
-``any(updating)`` on the host once per iteration (a synchronisation; CUDA
-graphs could remove it in later work).  The result carries no gradient,
-the zero-gradient contract of the JAX package's eval solve.
+their last value.  Each iteration makes one value+gradient evaluation,
+one inverse-Hessian update + search direction and one line search.  Two
+modes share the step:
 
-The training-mode solve (differentiable, unrolled, drop-path) belongs to
-the later slice that ports ``train/calibration.py``.
+* eval (``differentiable=False``, the default outside training): the
+  value+gradient through the ``value_and_grad_fn`` hook (kernel K2 in the
+  network) or autograd, the Hessian block through kernel K1 on a
+  channel-major ``(P, P, B)`` carry.  The loop tests ``any(updating)`` on
+  the host once per iteration and stops early; the result carries no
+  gradient (the JAX package's ``custom_jvp`` with a zero tangent).
+* differentiable (``differentiable=True``, the default in training): a
+  Python loop of exactly ``iterations`` steps with no host test, the
+  counterpart of the JAX package's ``lax.scan``.  The graph is kept: the
+  gradient comes from ``torch.autograd.grad(..., create_graph=True)``,
+  the Hessian block is the JAX package's unfused code
+  (:func:`update_inverse_hessian` on a batch-major ``(B, P, P)`` carry,
+  merged with ``torch.where``), so the outer loss differentiates through
+  the unroll.  Neither kernel runs here, as in the JAX package, where
+  both Pallas kernels are eval-only.  The line searches stay
+  zero-gradient in both modes.
+
+Training-mode knobs carry over: separate training iteration and threshold
+budgets, random early stopping (``drop_path_p``, drawn from a
+``torch.Generator`` or injected as keep-masks) and ``return_second_last``.
 """
 
 from __future__ import annotations
@@ -38,17 +51,25 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class BFGSConfig:
-    """Hyper-parameters of the eval-mode :func:`bfgs_solve`: the JAX
-    package's fields that its eval path reads.  The training budgets,
-    drop-path and line-search warm starts come with the later slice that
-    ports the training solve."""
+    """Hyper-parameters of :func:`bfgs_solve` (the JAX package's fields)."""
 
     sufficient_decrease: float = 1e-4
     curvature: float = 0.9
     error_threshold: float = 1e-4
     iterations: int = 1000
     minimum_step: float = 1e-8
+    # probability, per training step, that an element stops updating
+    drop_path_p: float = 0.1
+    # training: return the iterate one step short of convergence
+    return_second_last: bool = False
+    training_iterations: Optional[int] = None
+    training_error_threshold: Optional[float] = None
     line_search_iterations: int = 1000
+    # start each line search from the last accepted step size, clipped to
+    # [1/16, 16] (for backtracking: twice it, capped at
+    # warm_start_max_alpha) instead of 1
+    warm_start_line_search: bool = False
+    warm_start_max_alpha: float = 16.0
     # "wolfe" (widen + zoom machine) or "backtracking" (Armijo, value-only)
     line_search_method: str = "wolfe"
     max_step_size: Optional[float] = None
@@ -60,6 +81,21 @@ class BFGSConfig:
     # storage type of the inverse-Hessian carry: None (the parameters'
     # type) or "bfloat16"; the update arithmetic is in the parameters' type
     hessian_dtype: Optional[str] = None
+    # kept for parity with the JAX package's config: the eval solve always
+    # runs kernel K1 (False raises there), the differentiable solve always
+    # the unfused update (True raises there); None suits both
+    fused_hessian_kernel: Optional[bool] = None
+
+    def resolve(self, training: bool) -> tuple[int, float]:
+        """``(iterations, error threshold)`` of the eval or training solve."""
+        iterations = self.iterations
+        threshold = self.error_threshold
+        if training:
+            if self.training_iterations is not None:
+                iterations = self.training_iterations
+            if self.training_error_threshold is not None:
+                threshold = self.training_error_threshold
+        return iterations, threshold
 
 
 def scale_initial_inverse_hessian(step: torch.Tensor, delta_gradient: torch.Tensor) -> torch.Tensor:
@@ -125,13 +161,44 @@ def _value_and_grad_batched(error_function, params):
     return error.detach(), gradient
 
 
-@torch.no_grad()
+def _value_and_grad_with_graph(error_function, params):
+    """As :func:`_value_and_grad_batched`, keeping the graph: the gradient
+    is itself differentiable (``create_graph=True``), as the reverse pass
+    through the unrolled solve needs."""
+    with torch.enable_grad():
+        x = params if params.requires_grad else params.detach().requires_grad_(True)
+        error = error_function(x)
+        (gradient,) = torch.autograd.grad(error.sum(), x, create_graph=True)
+    return error, gradient
+
+
+def _unfused_update_direction(inverse_hessian, step, delta_gradient, gradient, updating, step_idx):
+    """The JAX package's unfused Hessian block on a batch-major
+    ``(B, P, P)`` carry (its non-fused branch of ``solver_step``): the eq.
+    6.20 rescale on the second step, the guarded rank-2 update where
+    ``updating`` holds (not on the first step), and ``-H g`` (``-g`` on
+    the first step).  Differentiable; only the differentiable solve runs
+    it."""
+    if step_idx == 1:
+        inverse_hessian = scale_initial_inverse_hessian(step, delta_gradient)[..., None] * inverse_hessian
+    if step_idx == 0:
+        return inverse_hessian, -gradient
+    updated = update_inverse_hessian(inverse_hessian, step, delta_gradient)
+    inverse_hessian = torch.where(updating[..., None, None], updated, inverse_hessian)
+    return inverse_hessian, -torch.einsum("...ij,...j->...i", inverse_hessian, gradient)
+
+
 def bfgs_solve(
     error_function: Callable[[torch.Tensor], torch.Tensor],
     parameters: torch.Tensor,
     config: BFGSConfig = BFGSConfig(),
     *,
+    training: bool = False,
+    differentiable: Optional[bool] = None,
+    generator: Optional[torch.Generator] = None,
+    keep_masks: Optional[torch.Tensor] = None,
     value_and_grad_fn: Optional[Callable] = None,
+    direction_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Minimise ``error_function`` independently for every batch element.
 
@@ -139,50 +206,112 @@ def bfgs_solve(
         on its own parameter row.  The line search probes it.
     :param parameters: ``(B, P)`` initial iterates.
     :param config: solver hyper-parameters.
+    :param training: the training iteration and threshold budgets,
+        drop-path and ``return_second_last``.
+    :param differentiable: keep the graph through a fixed-length unroll;
+        defaults to ``training``.
+    :param generator: draws the drop-path keep-masks (``uniform > p``, once
+        a step) when ``training`` and ``config.drop_path_p > 0``.
+    :param keep_masks: ``(iterations, B)`` boolean keep-masks to use
+        instead of the generator's draws.
     :param value_and_grad_fn: optional ``params -> (error, gradient)``
-        replacing autograd (the fused objective, kernel K2).
-    :return: ``(B, P)`` optimised parameters (no gradient).
+        replacing autograd (the fused objective, kernel K2); in the
+        differentiable solve it must keep its own graph.
+    :param direction_fn: optional ``(direction, params, error, step_idx)
+        -> direction`` applied after the clamp (a learned search-direction
+        modifier).
+    :return: ``(B, P)`` optimised parameters; in the eval mode without a
+        gradient.  With zero iterations, ``parameters`` itself.
     """
     if config.line_search_method not in ("wolfe", "backtracking"):
         raise ValueError(f"unknown line_search_method {config.line_search_method!r}")
     if parameters.ndim != 2:
         raise ValueError(f"expected a (B, P) batch, got shape {tuple(parameters.shape)}")
-    params = parameters.detach()
-    batch, p = params.shape
-    h_dtype = getattr(torch, config.hessian_dtype) if config.hessian_dtype else params.dtype
+    if differentiable is None:
+        differentiable = training
+    if differentiable and config.fused_hessian_kernel:
+        raise ValueError("fused_hessian_kernel (kernel K1) runs on the non-differentiable path only")
+    if not differentiable and config.fused_hessian_kernel is False:
+        raise ValueError("the eval solve always runs kernel K1; fused_hessian_kernel=False has no eval route")
+    iterations, threshold = config.resolve(training)
+    use_drop_path = training and config.drop_path_p > 0.0
+    if use_drop_path and generator is None and keep_masks is None:
+        raise ValueError("drop_path_p > 0 in training mode needs a generator or keep_masks")
+    if keep_masks is not None and keep_masks.shape[0] < iterations:
+        raise ValueError(f"keep_masks holds {keep_masks.shape[0]} steps, the solve takes up to {iterations}")
 
-    # channel-major (P, P, B) carry, as kernel K1 takes it
-    inverse_hessian = (
-        torch.eye(p, dtype=h_dtype, device=params.device)[:, :, None]
-        .expand(p, p, batch)
-        .contiguous()
+    def keep(step_idx, batch, device):
+        if keep_masks is not None:
+            return keep_masks[step_idx].to(device)
+        return torch.rand(batch, generator=generator, device=device) > config.drop_path_p
+
+    solve = dict(
+        error_function=error_function, config=config, iterations=iterations, threshold=threshold,
+        second_last=training and config.return_second_last, keep=keep if use_drop_path else None,
+        value_and_grad_fn=value_and_grad_fn, direction_fn=direction_fn,
     )
+    if differentiable:
+        return _solve(parameters, differentiable=True, **solve)
+    with torch.no_grad():
+        return _solve(parameters.detach(), differentiable=False, **solve)
+
+
+def _solve(
+    params, *, error_function, config, iterations, threshold, second_last, keep, value_and_grad_fn,
+    direction_fn, differentiable,
+):
+    batch, p = params.shape
+    dtype = params.dtype
+    h_dtype = getattr(torch, config.hessian_dtype) if config.hessian_dtype else dtype
+    fused = not differentiable
+    eye = torch.eye(p, dtype=h_dtype, device=params.device)
+    if fused:
+        # channel-major (P, P, B) carry, as kernel K1 takes it
+        inverse_hessian = eye[:, :, None].expand(p, p, batch).contiguous()
+    else:
+        inverse_hessian = eye.expand(batch, p, p)
     gradient = torch.zeros_like(params)
     step = torch.zeros_like(params)
     updating = torch.ones(batch, dtype=torch.bool, device=params.device)
+    alpha_carry = torch.ones(batch, dtype=dtype, device=params.device)
 
     step_idx = 0
-    while step_idx < config.iterations and bool(updating.any()):
+    # the eval solve stops once no element updates (a host test); the
+    # differentiable one runs its fixed length, as lax.scan does
+    while step_idx < iterations and (differentiable or bool(updating.any())):
+        if keep is not None:
+            updating = updating & keep(step_idx, batch, params.device)
         if value_and_grad_fn is not None:
             error, new_gradient = value_and_grad_fn(params)
+        elif differentiable:
+            error, new_gradient = _value_and_grad_with_graph(error_function, params)
         else:
             error, new_gradient = _value_and_grad_batched(error_function, params)
-        updating = updating & (error > config.error_threshold)
+        updating = updating & (error.detach() > threshold)
 
-        inverse_hessian, search_direction = fused_bfgs_update_direction(
-            inverse_hessian,
-            step,
-            new_gradient - gradient,
-            new_gradient,
-            updating,
-            step_idx == 0,
-            step_idx == 1,
-        )
+        if fused:
+            inverse_hessian, search_direction = fused_bfgs_update_direction(
+                inverse_hessian, step, new_gradient - gradient, new_gradient, updating, step_idx == 0, step_idx == 1
+            )
+        else:
+            h, search_direction = _unfused_update_direction(
+                inverse_hessian.to(dtype), step, new_gradient - gradient, new_gradient, updating, step_idx
+            )
+            inverse_hessian = h.to(h_dtype)
         gradient = new_gradient
         search_direction = clamp_search_direction(
             search_direction, config.max_step_distance, config.min_step_distance
         )
+        if direction_fn is not None:
+            search_direction = direction_fn(search_direction, params, error, step_idx)
 
+        init_alpha = None
+        if config.warm_start_line_search:
+            init_alpha = torch.clamp(alpha_carry, 1.0 / 16.0, 16.0)
+            if config.line_search_method == "backtracking":
+                # backtracking only shrinks from its first candidate: seed
+                # it at twice the last accepted step (capped)
+                init_alpha = torch.clamp(2.0 * init_alpha, max=config.warm_start_max_alpha)
         if config.line_search_method == "backtracking":
             alpha = line_search_backtracking(
                 params,
@@ -193,6 +322,7 @@ def bfgs_solve(
                 sufficient_decrease=config.sufficient_decrease,
                 max_iterations=config.line_search_iterations,
                 active=updating,
+                init_alpha=init_alpha,
             )
         else:
             alpha = line_search_wolfe_conditions(
@@ -208,10 +338,17 @@ def bfgs_solve(
                 max_step_size=config.max_step_size,
                 zoom_method=config.zoom_method,
                 active=updating,
+                init_alpha=init_alpha,
             )
         new_step = alpha[:, None] * search_direction
         step = torch.where(updating[:, None], new_step, step)
-        params = torch.where(updating[:, None], params + new_step, params)
-        updating = updating & (torch.linalg.vector_norm(step, dim=-1) > config.minimum_step)
+        moving = updating & (torch.linalg.vector_norm(step.detach(), dim=-1) > config.minimum_step)
+        # return_second_last commits the step only where the element keeps
+        # moving, so the result lags the converged iterate by one step
+        params = torch.where((moving if second_last else updating)[:, None], params + new_step, params)
+        if config.warm_start_line_search:
+            # failed searches (alpha 0) keep the last accepted step size
+            alpha_carry = torch.where(moving & (alpha > 0), alpha, alpha_carry)
+        updating = moving
         step_idx += 1
     return params

@@ -1,10 +1,15 @@
 from .calibration import (
     CalibrationExperiment,
+    TrainState,
     batch_generator,
+    create_train_state,
     evaluate_calibration_ate,
+    fit,
+    fit_fov_curriculum,
     make_eval_step,
+    make_train_step,
 )
-from .checkpoint import latest_step, restore_checkpoint
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .evaluation import (
     absolute_trajectory_error,
     camera_centers_from_poses,
@@ -19,16 +24,23 @@ from .frontend import (
     frontend_loss,
     render_scene_batch,
 )
-
+from .metrics import MetricsLogger
 from .presets import PRESETS, get_preset
 
 __all__ = [
     "CalibrationExperiment",
+    "TrainState",
     "batch_generator",
+    "create_train_state",
     "evaluate_calibration_ate",
+    "fit",
+    "fit_fov_curriculum",
     "make_eval_step",
+    "make_train_step",
+    "MetricsLogger",
     "latest_step",
     "restore_checkpoint",
+    "save_checkpoint",
     "absolute_trajectory_error",
     "camera_centers_from_poses",
     "intrinsics_error",

@@ -44,6 +44,7 @@ from tests.torch_port_helpers import torch_single_thread  # noqa: F401
 REPO = Path(__file__).resolve().parents[1]
 V2_600 = REPO / "artifacts" / "calibration_transformer_v2_600.pkl"
 V4_1800 = REPO / "artifacts" / "calibration_transformer_v4_1800.pkl"
+V5_TOKENS8 = REPO / "artifacts" / "calibration_transformer_v5_tokens8.pkl"
 M, N = 4, 8
 P = 3 + 3 * N + 6 * (M - 1)
 SOLVER = dict(error_threshold=1e-7, iterations=10, line_search_iterations=50)
@@ -144,9 +145,10 @@ def test_v2_600_head_matches_jax():
 
 
 def test_port_loads_weights_without_jax():
-    """The port, imported and loading the v2_600 and v4_1800 checkpoints
-    and the front end's weights in a fresh interpreter, pulls in no JAX,
-    flax, optax or davo_tpu module."""
+    """The port, every module imported (the training ones too), loading the
+    v2_600 and v4_1800 checkpoints, reading the v5_tokens8 architecture and
+    the front end's weights in a fresh interpreter, pulls in no JAX, flax,
+    optax or davo_tpu module."""
     code = (
         "import sys\n"
         "import davo_tpu_torch, davo_tpu_torch.models, davo_tpu_torch.solve, davo_tpu_torch.data\n"
@@ -156,11 +158,18 @@ def test_port_loads_weights_without_jax():
         "import davo_tpu_torch.data.vo_windows, davo_tpu_torch.train.frontend\n"
         "import davo_tpu_torch.cli, davo_tpu_torch.train.calibration, davo_tpu_torch.ops.bfgs_update_variants\n"
         "import davo_tpu_torch.scripts.check_fused_objective, davo_tpu_torch.scripts.time_fused_objective\n"
-        "import davo_tpu_torch.scripts.tune_bfgs_kernel\n"
+        "import davo_tpu_torch.scripts.tune_bfgs_kernel, davo_tpu_torch.train.metrics\n"
+        "import davo_tpu_torch.train.checkpoint, davo_tpu_torch.train.presets, davo_tpu_torch.camera\n"
+        "import davo_tpu_torch.models.convert, davo_tpu_torch.solve.bfgs\n"
+        "from davo_tpu_torch.train import fit, fit_fov_curriculum, create_train_state, make_train_step, MetricsLogger\n"
+        "from davo_tpu_torch.camera import basin_score, calibration_residuals\n"
+        "from davo_tpu_torch.models import permutation_restart_guesses, state_dict_to_flax, flax_style_init_\n"
         f"ckpt = davo_tpu_torch.models.load_numpy_checkpoint({str(V2_600)!r})\n"
         "assert ckpt['params']['initial_estimator']['head']['kernel'].shape == (256, 45)\n"
         f"ckpt = davo_tpu_torch.models.load_numpy_checkpoint({str(V4_1800)!r})\n"
         "assert ckpt['params']['initial_estimator']['head']['kernel'].shape == (448, 45)\n"
+        f"arch = davo_tpu_torch.models.checkpoint_architecture(davo_tpu_torch.models.load_numpy_checkpoint({str(V5_TOKENS8)!r})['params'])\n"
+        "assert arch['guess_tokens'] == 8 and arch['hidden_size'] == 384, arch\n"
         "frontend, render = davo_tpu_torch.models.load_frontend(device='cpu')\n"
         "assert render.image_size == 96 and frontend.num_select == 8\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'davo_tpu')]\n"
@@ -179,7 +188,12 @@ def test_numpy_only_loader_refuses_other_globals(tmp_path):
 
 
 def test_training_mode_not_ported():
-    net = CalibrationNetwork(M, N, hidden_size=16, device="cpu")
+    """The training forward runs: in ``train()`` mode the network solves one
+    start through the unrolled differentiable solve and keeps the graph
+    back to the head's weights.  What stays unported of training (the
+    front end's step, L-BFGS) lives outside this module."""
+    net = CalibrationNetwork(M, N, hidden_size=16, device="cpu", solver=BFGSConfig(training_iterations=2))
     net.train()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        net(torch.zeros(2, M, N, 2), torch.ones(2, M, N, dtype=torch.bool))
+    out = net(torch.rand(4, M, N, 2), torch.ones(4, M, N, dtype=torch.bool), generator=torch.Generator().manual_seed(0))
+    (grad,) = torch.autograd.grad(out.sum(), net.initial_estimator.head.weight)
+    assert out.shape == (4, P) and torch.isfinite(grad).all() and grad.abs().sum() > 0

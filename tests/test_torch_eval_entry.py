@@ -17,7 +17,8 @@ trajectory accuracy against the JAX package's, and the port's CLI.
   arrays.
 * ``python -m davo_tpu_torch.cli eval --platform cpu`` at a tiny size
   (a checkpoint of the tiny network, 2 restarts, a 3-iteration solve):
-  control flow and finite metrics; the refusals of what is not ported.
+  control flow and finite metrics; the refusals of what is still not
+  ported.
 """
 
 import dataclasses
@@ -188,13 +189,15 @@ def test_cli_eval_on_the_cpu(tiny, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (["--selection", "basin"], "Queue 1 item 1"),
-        (["--restart-proposals", "permutation"], "Queue 1 item 1"),
-        (["--restart-proposals", "tokens"], "Queue 1 item 1"),
         (["--solver", "lbfgs"], "Queue 1 item 4"),
+        (["--config", "experiment.yaml"], "Queue 1 item 8"),
+        (["--tensorboard-dir", "tb"], "Queue 1 item 8"),
+        (["--preset", "bfgs_solver_full_gradient"], "Queue 1 item 6"),
     ],
 )
 def test_cli_refuses_what_is_not_ported(extra, match):
+    """What the entry still refuses (basin selection and the permutation,
+    input-noise and token proposals run: ``tests/test_torch_fit.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         cli.run(TINY_ARGS + extra)
 

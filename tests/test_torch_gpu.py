@@ -1,5 +1,5 @@
 """Kernels K1, K1′, K2, K3 and K4 on the card, against their plain PyTorch
-versions.
+versions; and one training step on the card against the CPU's.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -29,7 +29,7 @@ FLAGS = [(True, False), (False, True), (False, False)]
 
 
 def _normwise(actual, expected):
-    actual, expected = actual.float().cpu(), expected.float().cpu()
+    actual, expected = actual.double().cpu(), expected.double().cpu()
     return float((actual - expected).abs().max() / max(1.0, float(expected.abs().max())))
 
 
@@ -238,3 +238,46 @@ def test_match_attention_kernel_matches_plain(cuda_device, b, q_len, kv_len, d, 
         assert _normwise(got, expected) <= 1e-5
         if m is not None:
             assert bool(torch.all(got[0] == 0))
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One training step of the MLP head (hidden 32) through a 3-iteration
+    unrolled solve with drop-path 0.1 (keep-masks drawn once on the CPU),
+    float64, batch 16, on the card and on the CPU from the same weights and
+    batch: loss, metrics, updated parameters and running statistics to
+    1e-8 normwise, and no kernel launched (the training solve is unfused)."""
+    import dataclasses
+
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+    from davo_tpu_torch.solve import BFGSConfig
+    from davo_tpu_torch.train import CalibrationExperiment, create_train_state, make_train_step
+    from davo_tpu_torch.types import CameraViewsAndPoints
+
+    batch = generate_batch(torch.Generator().manual_seed(5), 16, SceneConfig(dtype=torch.float64), device="cpu")
+    keep_masks = torch.rand(3, 16, generator=torch.Generator().manual_seed(6)) > 0.1
+
+    @dataclasses.dataclass(frozen=True)
+    class FixedBatch(CalibrationExperiment):
+        def make_batch_fn(self, device=None):
+            moved = CameraViewsAndPoints(*(x.to(device) for x in batch))
+            return lambda generator, batch_size: moved
+
+    config = FixedBatch(
+        hidden_size=32, batch_size=16, dtype=torch.float64,
+        solver=BFGSConfig(error_threshold=1e-7, training_error_threshold=1e-3, iterations=100, training_iterations=3,
+                          line_search_iterations=50, drop_path_p=0.1),
+    )
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        state = create_train_state(config, device)
+        build.reset_launch_counts()
+        metrics = make_train_step(state, config)(torch.Generator(device).manual_seed(0), keep_masks=keep_masks)
+        assert not any(build.launch_counts.values())
+        results.append((metrics, state.network.state_dict()))
+    (metrics, weights), (cpu_metrics, cpu_weights) = results
+    for name, value in cpu_metrics.items():
+        assert _normwise(metrics[name], value) <= 1e-8, name
+    for name, value in cpu_weights.items():
+        if not name.endswith("num_batches_tracked"):
+            assert _normwise(weights[name], value) <= 1e-8, name
