@@ -35,19 +35,20 @@ Phases, each printed as one JSON line with its seconds:
             each (8,192-element BFGS solves, strong Wolfe search); latency,
             errors against ground truth, and the kernels' launch counts;
             plus the same network on a small input against the CPU run,
-            and a torch.profiler breakdown of one (shortened) request;
+            and a torch.profiler breakdown of one request (5 iterations);
 5. frontend_serve  learned-match window calibration: 2 requests of 1,024 VO
             windows generated and rendered at 96 px on the card, the front end
             (frontend_v4 weights, every gate off as it was validated: U-Net
             detector, top-k anchors, attention matcher through K3) and the
             window solver (vo_windows_transformer_v2_600, 8 restarts) on its
             matches; latency split, match_inlier_rate, errors, launch counts;
-            then, outside the counted run, request 0's first 256 windows
-            solved on vo-eval's default front end (greedy NMS anchors) and on
-            oracle matches, and request 0's solve again, watching K1's
-            carry (its drift from symmetry, and what K1's y'H = (Hy)'
-            changes on it); plus 8 windows through the front end and a
-            5-iteration solve on the card against the CPU run;
+            request 0's solve watching K1's carry (its drift from symmetry,
+            and, once the counts are read, what K1's y'H = (Hy)' changes
+            on it); then, outside the counted run, request 0's first 256
+            windows solved on vo-eval's default front end (greedy NMS
+            anchors) and on oracle matches; plus 8 windows through the
+            front end and a 5-iteration solve on the card against the CPU
+            run;
 6. bench    one BFGS solve at bench.py's shape (B = 16384, 4 views x 8
             points, 20 iterations, backtracking capped at 6 probes);
 7. fused_objective  the entry points davo_tpu_torch.scripts.check_fused_objective
@@ -60,8 +61,8 @@ Phases, each printed as one JSON line with its seconds:
 9. eval_v4  the eval entry (python -m davo_tpu_torch.cli eval) at the JAX
             package's v4_1800 checkpoint (transformer head, embed 448, 10
             layers, 8 heads), 8 restarts, one eval batch and four ATE
-            batches of 1,024 scenes; its JSON, the seconds per solve and the
-            comparison with artifacts/eval_v4_calib.log;
+            batches of 64 scenes (eval_lbfgs's); its JSON, the seconds per
+            solve and the comparison with artifacts/eval_v4_calib.log;
 10. eval_restarts  the eval proposals and selections on 256 scenes a case, one
             solve each through the library's evaluate_calibration_ate: v4_1800
             with 32 noise restarts and basin selection, with 8 permutation and
@@ -72,14 +73,34 @@ Phases, each printed as one JSON line with its seconds:
 11. train_check  one train step (MLP head, 3-iteration unrolled solve,
             drop-path with injected keep-masks, float64) on the card against
             the CPU: loss, metrics, updated parameters and running statistics;
-12. train   each calibration recipe at full width: 20 train steps and 2
-            validation batches (the reference recipe's MLP head through its
+12. train   each calibration recipe at full width: 20 train steps and 1
+            validation batch (the reference recipe's MLP head through its
             10-iteration unrolled solve, from a flax-style init; the curriculum
             transformer at v4_1800's width from its weights): losses, seconds
             per step, peak device memory, K1/K2 launches (none in the train
             steps, whose solve is unfused as in the JAX package) and a
-            checkpoint round trip through fit (1 + 1 against 2 epochs);
-13. the kernels line, then the last line:
+            checkpoint round trip through fit (1 + 1 against 2 epochs); the
+            reference recipe's step also under a torch.profiler window of 5
+            more steps after its validation (its device busy share);
+13. eval_lbfgs  the eval entry with --solver lbfgs at v4_1800 (8 restarts, one
+            eval batch and four ATE batches of 64 scenes): K2 launched through
+            the solver's value+gradient hook, K1 never (L-BFGS has no dense
+            H); ATE and f_error beside artifacts/eval_v4_lbfgs.log, seconds per
+            solve;
+14. frontend_train_check  two front-end train steps (32 px, width 8, dropout
+            0.1 with injected masks, a one-step warm-up, float64) on the
+            card against the CPU: metrics, updated parameters, both AdamW
+            moments and BatchNorm statistics;
+15. frontend_train  fit_frontend at the frontend_v4 recipe's full width (batch
+            16, 64 steps and 8 validation batches an epoch, 96 px) from a
+            flax-style init for 12 epochs beside
+            artifacts/frontend_v4_metrics.jsonl: per-epoch losses and
+            match_inlier_rate, K3 launches (0 in the train steps, > 0 in each
+            validation), peak memory; then each step timed alone, a profiler
+            window of 5 steps, and the checkpoint round trip (saved as
+            fit-frontend saves it, read back by load_frontend);
+16. the kernels line (with each kernel's launches on every path that ran
+   it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any mismatch beyond tolerance, a failed build or launch, or a kernel a
@@ -87,9 +108,11 @@ path never launched raises, and the script exits non-zero.  Without a
 card it exits non-zero before doing anything.  Each path's launch counts
 are set to 0 just before it and read just after: K1, K2 and K3 from the
 learned-match window path, K4 from the fused-objective entry points, K1'
-from the tuning sweep.
+from the tuning sweep, K2 from the L-BFGS eval, K3 from the front end's
+validation (its train steps read 0).
 """
 
+import itertools
 import json
 import math
 import os
@@ -130,11 +153,13 @@ VO_EVAL_GATES = dict(nms_radius=0.1)
 K3_PROBLEMS, K3_CELLS, K3_DEPTH, K3_WIDTH = (M - 1) * WINDOWS, 144, 64, 2
 # the eval entry at v4_1800: the architecture read from the pickle (embed
 # 448, 10 layers, 8 heads of 56); one eval batch and the four ATE batches
-# of 1,024 scenes (five solves of 8,192 elements)
+# of 64 scenes (five solves of 512 elements), as the JAX log's ATE (4 x 64)
+# and on eval_lbfgs's scenes; batches of 1,024 scenes took 155-227 s, which
+# the run's time limit cannot spare
 EVAL_V4_ARGS = [
     "eval", "--preset", "calibration_transformer_curriculum", "--hidden-size", "448",
     "--transformer-layers", "10", "--transformer-heads", "8", "--restarts", "8",
-    "--batch-size", "1024", "--batches", "1",
+    "--batch-size", "64", "--batches", "1",
 ]
 EVAL_V4_SOLVES = 1 + 4
 # acceptance bands around the JAX package's figures (eval_v4_calib.log:
@@ -159,8 +184,34 @@ EVAL_RESTART_BAND = (0.6, 1.5)  # times the JAX figure
 # training: one step on the card against the CPU (float64), then each
 # recipe's steps, validation and a checkpoint round trip
 TRAIN_CHECK_TOL = 1e-8
-TRAIN_STEPS, TRAIN_VAL_BATCHES = 20, 2
+# one validation batch a recipe: each costs 11-13 s, and with two the run
+# passed 900 s of its limit on a slow host
+TRAIN_STEPS, TRAIN_VAL_BATCHES = 20, 1
 RESUME_EVAL_ITERATIONS, RESUME_TOL = 10, 1e-6
+# a torch.profiler window over this many train steps gives a step's
+# device busy share; the serve profile's solve runs PROFILED_ITERATIONS
+# (the profiler's post-processing of a 10-iteration solve takes about 45 s)
+PROFILED_STEPS, PROFILED_ITERATIONS = 5, 5
+# the eval entry with L-BFGS at v4_1800: 8 restarts, one eval batch and the
+# four ATE batches of 64 scenes (256 scenes, as eval_v4_lbfgs.log's)
+EVAL_LBFGS_ARGS = [
+    "eval", "--preset", "calibration_transformer_curriculum", "--hidden-size", "448",
+    "--transformer-layers", "10", "--transformer-heads", "8", "--restarts", "8",
+    "--batch-size", "64", "--batches", "1", "--solver", "lbfgs",
+]
+EVAL_LBFGS_SOLVES = 1 + 4
+# the front end's training: two steps on the card against the CPU (float64,
+# a small size), then the frontend_v4 recipe at full width (4 views x 8
+# points, select 8, descriptor and embedding 64, batch 16, 64 batches and 8
+# validation batches an epoch, 96 px, learning rate 3e-4, warm-up 200) for
+# FRONTEND_EPOCHS epochs beside artifacts/frontend_v4_metrics.jsonl
+FRONTEND_TRAIN_CHECK_TOL = 1e-8
+FRONTEND_EPOCHS, FRONTEND_IMAGE_SIZE = 12, 96
+FRONTEND_TIMED_STEPS = 20
+FRONTEND_LOSS_BAND, FRONTEND_INLIER_FLOOR = (0.6, 1.5), 0.5  # times the JAX log's figure at the same epoch
+FRONTEND_REFERENCE_LOG = os.path.join(REPO, "artifacts", "frontend_v4_metrics.jsonl")
+# the paths whose launch counts the kernels line reports
+LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train")
 
 
 def emit(phase, **fields):
@@ -234,6 +285,12 @@ def check(name, actual, expected, tol):
     if not math.isfinite(rel) or rel > tol:
         raise AssertionError(f"{name}: max abs diff {diff} (normwise {rel}) exceeds {tol}")
     return {"max_abs_err": diff, "normwise_rel_err": rel, "tolerance": tol}
+
+
+def relative_error(actual, expected):
+    """``|a - e| / |e|`` of two scalars, in float64."""
+    expected = float(expected)
+    return abs(float(actual) - expected) / (abs(expected) or 1.0)
 
 
 def bound(bytes_moved, operations):
@@ -648,13 +705,54 @@ def small_input_reference(device):
     return dict(guess=guess_check, scenes_agreeing=agree)
 
 
+def _device_us(row):
+    return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0.0)
+
+
+def device_busy(rows, wall_s):
+    """The device's kernel seconds in a profile's ``key_averages()`` rows
+    and their share of ``wall_s``.  Only the device's own rows (the
+    kernels, memcpys and memsets) are summed: an operator's row also
+    carries the device time of the kernels it launched, so summing every
+    row counts each kernel twice (``all_rows_device_s``, kept to show it)."""
+    from torch.autograd import DeviceType
+
+    kernel_us = sum(
+        _device_us(r) for r in rows
+        if getattr(r, "device_type", None) == DeviceType.CUDA and not getattr(r, "is_user_annotation", False)
+    )
+    all_us = sum(_device_us(r) for r in rows)
+    if kernel_us <= 0:
+        return dict(device_kernel_s="not measured", device_busy_share="not measured", all_rows_device_s=all_us / 1e6)
+    return dict(device_kernel_s=kernel_us / 1e6, device_busy_share=kernel_us / 1e6 / wall_s,
+                all_rows_device_s=all_us / 1e6)
+
+
+def profile_steps(step, steps=PROFILED_STEPS):
+    """torch.profiler over ``steps`` calls of ``step`` (after one warm-up
+    call), synchronised at the end: wall seconds, the device's kernel
+    seconds and its busy share.  Only the device's activity is recorded:
+    the share needs no more, and the host's operators of 5 MLP train
+    steps took about 80 s to post-process on an H100 host."""
+    step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return dict(profiled_steps=steps, profiled_wall_s=wall, **device_busy(prof.key_averages(), wall))
+
+
 def profile_phase(device):
     """Where a request's time goes: torch.profiler over one request of
-    1,024 scenes (8 restarts) with the solve cut to 10 iterations (the
-    per-iteration work is the same as in the 100-iteration serve)."""
+    1,024 scenes (8 restarts) with the solve cut to PROFILED_ITERATIONS
+    iterations (the per-iteration work is the same as in the
+    100-iteration serve)."""
     from davo_tpu_torch.data import SceneConfig, generate_batch
 
-    network = serve_network(device, iterations=10)
+    network = serve_network(device, iterations=PROFILED_ITERATIONS)
     scenes = generate_batch(torch.Generator(device).manual_seed(7), SERVE_SCENES, SceneConfig(), device=device)
 
     def request():
@@ -671,22 +769,16 @@ def profile_phase(device):
         request()
         profiled = time.perf_counter() - start
     rows = prof.key_averages()
-
-    def device_us(row):
-        return getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0.0)
-
-    total_device_s = sum(device_us(r) for r in rows) / 1e6
-    by_device = sorted(rows, key=device_us, reverse=True)[:8]
+    busy = device_busy(rows, profiled)
+    by_device = sorted(rows, key=_device_us, reverse=True)[:8]
     by_host = sorted(rows, key=lambda r: r.self_cpu_time_total, reverse=True)[:8]
     atan2_calls = sum(r.count for r in rows if r.key == "aten::atan2")
     return dict(
-        solver_iterations=10, wall_s=unprofiled, profiled_wall_s=profiled,
-        device_kernel_s=total_device_s if total_device_s > 0 else "not measured",
-        device_busy_share=total_device_s / profiled if total_device_s > 0 else "not measured",
+        solver_iterations=PROFILED_ITERATIONS, wall_s=unprofiled, profiled_wall_s=profiled, **busy,
         # each plain-objective evaluation (a line-search probe round) calls
         # atan2 once per view; the restart selection calls it once more
         probe_rounds=(atan2_calls - 1) / M,
-        top_device=[dict(name=r.key[:80], ms=device_us(r) / 1e3, count=r.count) for r in by_device],
+        top_device=[dict(name=r.key[:80], ms=_device_us(r) / 1e3, count=r.count) for r in by_device],
         top_host_self=[dict(name=r.key[:80], ms=r.self_cpu_time_total / 1e3, count=r.count) for r in by_host],
     )
 
@@ -721,10 +813,17 @@ def frontend_serve_phase(device):
         out = frontend(images)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        params, error = network(
-            out.matches, out.match_visibility,
-            generator=torch.Generator(device).manual_seed(2000 + seed), return_error=True,
-        )
+
+        def solve():
+            return network(
+                out.matches, out.match_visibility,
+                generator=torch.Generator(device).manual_seed(2000 + seed), return_error=True,
+            )
+
+        if seed == 0:  # K1's carry watched on the served solve: no solve of its own
+            (params, error), carry_report = carry_symmetry(solve)
+        else:
+            params, error = solve()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         metrics = frontend_eval_metrics(out, windows, experiment)
@@ -744,7 +843,6 @@ def frontend_serve_phase(device):
         ))
         if first is None:
             first = (windows, images, params, error)
-            first_matches = (out.matches, out.match_visibility)
     # read just after the main path, before anything else launches a kernel
     launches = dict(build.launch_counts)
     for name in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
@@ -752,18 +850,20 @@ def frontend_serve_phase(device):
             raise AssertionError(f"the learned-match window path never launched kernel {name}")
     return dict(
         requests=requests, launches=launches, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        subset_comparison=subset_comparison(device, network, experiment, *first),
-        carry_symmetry=carry_symmetry(device, network, *first_matches),
+        carry_symmetry=carry_report(), subset_comparison=subset_comparison(device, network, experiment, *first),
     )
 
 
-def carry_symmetry(device, network, matches, visibility):
-    """Request 0's window solve run again (the same matches and draws),
-    outside the counted run, watching K1's calls: how far the carry that
-    the solve ends with has drifted from symmetry, max|H - H'| / max|H|
-    (over the batch, and the worst element's), and what K1's shortcut
-    y'H = (Hy)' changes on the last call that updated any element, against
-    K1's plain version and K1' rowloop2, which reduce y'H over the rows."""
+def carry_symmetry(solve):
+    """``solve()`` (served request 0's window solve, inside the counted
+    run) watching K1's calls without a host synchronisation.  Returns
+    ``(solve's result, report)``; ``report()``, called once the launch
+    counts are read (it launches K1's plain version and K1' rowloop2),
+    gives how far the carry that the solve ends with has drifted from
+    symmetry, max|H - H'| / max|H| (over the batch, and the worst
+    element's), and what K1's shortcut y'H = (Hy)' changes on the last
+    call that updated any element, against K1's plain version and K1'
+    rowloop2, which reduce y'H over the rows."""
     import importlib
 
     from davo_tpu_torch.ops import bfgs_update_variants as k1v
@@ -771,21 +871,20 @@ def carry_symmetry(device, network, matches, visibility):
 
     solver = importlib.import_module("davo_tpu_torch.solve.bfgs")
     k1 = solver.fused_bfgs_update_direction
-    seen = {"calls": 0}
+    seen = {"calls": 0, "last_two": []}
 
     def watch(*args):
         out = k1(*args)
         seen.update(calls=seen["calls"] + 1, final=out[0])
-        if not args[5] and bool(args[4].any()):  # not the first step, some element updating
-            seen["updating"] = (args, out)
+        if not args[5]:  # not the first step
+            seen["last_two"] = (seen["last_two"] + [(args, out)])[-2:]
         return out
 
     solver.fused_bfgs_update_direction = watch
     try:
-        network(matches, visibility, generator=torch.Generator(device).manual_seed(2000))
+        result = solve()
     finally:
         solver.fused_bfgs_update_direction = k1
-    torch.cuda.synchronize()
 
     def asymmetry(h):
         h = h.float()
@@ -798,17 +897,23 @@ def carry_symmetry(device, network, matches, visibility):
     def normwise(a, b):
         return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1.0)).item()
 
-    args, (k1_h, k1_d) = seen["updating"]
-    plain_h, plain_d = channel_major_plain(reference_update_direction, *args)
-    v_h, v_d = k1v.rowloop2_update_direction(*args)
-    torch.cuda.synchronize()
-    return dict(
-        k1_calls=seen["calls"], h_dtype=str(args[0].dtype).replace("torch.", ""), batch=args[0].shape[-1],
-        final_carry=asymmetry(seen["final"]), last_update_carry_in=asymmetry(args[0]),
-        last_update_share=args[4].float().mean().item(),
-        k1_against_plain=dict(h=normwise(k1_h, plain_h), d=normwise(k1_d, plain_d)),
-        rowloop2_against_plain=dict(h=normwise(v_h, plain_h), d=normwise(v_d, plain_d)),
-    )
+    def report():
+        # the solve goes on only while some element moved, and an element
+        # that moved was updating at that step's K1 call: so of the last two
+        # calls, the later one that updated any element
+        args, (k1_h, k1_d) = next(c for c in reversed(seen["last_two"]) if bool(c[0][4].any()))
+        plain_h, plain_d = channel_major_plain(reference_update_direction, *args)
+        v_h, v_d = k1v.rowloop2_update_direction(*args)
+        torch.cuda.synchronize()
+        return dict(
+            k1_calls=seen["calls"], h_dtype=str(args[0].dtype).replace("torch.", ""), batch=args[0].shape[-1],
+            final_carry=asymmetry(seen["final"]), last_update_carry_in=asymmetry(args[0]),
+            last_update_share=args[4].float().mean().item(),
+            k1_against_plain=dict(h=normwise(k1_h, plain_h), d=normwise(k1_d, plain_d)),
+            rowloop2_against_plain=dict(h=normwise(v_h, plain_h), d=normwise(v_d, plain_d)),
+        )
+
+    return result, report
 
 
 def subset_comparison(device, network, experiment, windows, images, params, error):
@@ -843,7 +948,7 @@ def subset_comparison(device, network, experiment, windows, images, params, erro
     for label, p in (("nms", nms_params), ("oracle", oracle_params)):
         if not torch.isfinite(p).all():
             raise AssertionError(f"subset comparison: the {label} solve gave non-finite values")
-    return dict(
+    comparison = dict(
         windows=COMPARISON_WINDOWS, nms_gates=VO_EVAL_GATES,
         nms_match_inlier_rate=frontend_eval_metrics(nms_out, windows, experiment)["match_inlier_rate"].item(),
         nms_visible_match_share=nms_out.match_visibility.float().mean().item(),
@@ -855,6 +960,7 @@ def subset_comparison(device, network, experiment, windows, images, params, erro
         oracle_mean_final_error=oracle_error.mean().item(),
         oracle_f_error_mean=focal_error(oracle_params, sub_windows).mean().item(),
     )
+    return comparison
 
 
 def _subset(windows, sub):
@@ -1188,11 +1294,13 @@ def train_check_phase(device):
                 loss_card=float(metrics["loss"]), loss_cpu=float(cpu_metrics["loss"]))
 
 
-def train_recipe(device, name, config, initial=None):
+def train_recipe(device, name, config, initial=None, profile=False):
     """TRAIN_STEPS train steps of ``config`` at full width (from a
     flax-style init, or from ``initial``'s weights), then
     TRAIN_VAL_BATCHES validation batches; each part's launches counted
-    from 0 just before it."""
+    from 0 just before it.  With ``profile``, a torch.profiler window over
+    PROFILED_STEPS more steps (after the validation) gives a step's
+    device busy share."""
     from davo_tpu_torch.models import load_flax_weights
     from davo_tpu_torch.ops import build
     from davo_tpu_torch.train import batch_generator, create_train_state, make_eval_step, make_train_step
@@ -1230,13 +1338,17 @@ def train_recipe(device, name, config, initial=None):
     val_metrics = {k: float(torch.mean(torch.stack([m[k] for m in val]))) for k in val[0]}
     if not all(math.isfinite(v) for v in val_metrics.values()):
         raise AssertionError(f"train {name}: non-finite validation metrics {val_metrics}")
+    busy = None
+    if profile:  # after the validation, which so reads the state after TRAIN_STEPS updates
+        extra = itertools.count(TRAIN_STEPS)
+        busy = profile_steps(lambda: train_step(batch_generator(device, config.seed, 0, 0, next(extra))))
     tail = sorted(seconds[-10:])
     return dict(
         recipe=name, steps=TRAIN_STEPS, batch=config.batch_size, training_iterations=config.solver.training_iterations,
         drop_path_p=config.solver.drop_path_p, first_loss=losses[0], last_loss=losses[-1],
         median_step_s_last10=(tail[4] + tail[5]) / 2, first_step_s=seconds[0], peak_memory_gb=peak,
         train_launches=train_launches, val_batches=TRAIN_VAL_BATCHES, val_s_per_batch=val_seconds,
-        val_launches=val_launches, val_metrics=val_metrics, resume=resume_check(device, config),
+        val_launches=val_launches, val_metrics=val_metrics, step_profile=busy, resume=resume_check(device, config),
     )
 
 
@@ -1284,10 +1396,258 @@ def train_phase(device):
     arch = checkpoint_architecture(v4["params"])
     arch.pop("head")
     curriculum = dataclasses.replace(get_preset("calibration_transformer_curriculum"), **arch)
-    recipes = [train_recipe(device, "calibration_from_oracle_matches", reference)]
+    recipes = [train_recipe(device, "calibration_from_oracle_matches", reference, profile=True)]
     torch.cuda.empty_cache()
     recipes.append(train_recipe(device, "calibration_transformer_curriculum (v4_1800)", curriculum, initial=v4))
     return dict(recipes=recipes)
+
+
+# ------------------------------------------------------- eval L-BFGS ----
+
+
+def eval_lbfgs_phase(device):
+    """``python -m davo_tpu_torch.cli eval --solver lbfgs`` at the v4_1800
+    checkpoint, 8 restarts, 256 scenes for the ATE, counted from 0 just
+    before it: K2 through the solver's value_and_grad hook, never K1 (no
+    dense H); its figures beside artifacts/eval_v4_lbfgs.log within
+    EVAL_RESTART_BAND."""
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.ops import build
+
+    reference = jax_reference("eval_v4_lbfgs.log")
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        os.symlink(V4_CHECKPOINT, os.path.join(checkpoint_dir, "checkpoint_1800.pkl"))
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = cli.run(EVAL_LBFGS_ARGS + ["--checkpoint-dir", checkpoint_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    launches = dict(build.launch_counts)
+    print(json.dumps(result), flush=True)  # what the CLI prints
+    if launches["calibration_value_and_grad"] <= 0:
+        raise AssertionError("eval_lbfgs: the L-BFGS eval never launched kernel calibration_value_and_grad")
+    if launches["bfgs_update"] != 0:
+        raise AssertionError(f"eval_lbfgs: L-BFGS launched the BFGS-update kernel {launches['bfgs_update']} times")
+    if not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"eval_lbfgs: non-finite metrics {result}")
+    bands = {k: (EVAL_RESTART_BAND[0] * reference[k], EVAL_RESTART_BAND[1] * reference[k])
+             for k in ("ate_rmse_mean", "f_error_mean")}
+    assert_within_bands("eval_lbfgs", result, bands)
+    return dict(
+        result=result, launches=launches, seconds_per_solve=seconds / EVAL_LBFGS_SOLVES, solves=EVAL_LBFGS_SOLVES,
+        jax_reference={k: reference[k] for k in ("ate_rmse_mean", "ate_rmse_median", "f_error_mean")},
+        jax_reference_source="artifacts/eval_v4_lbfgs.log (256 scenes, jax.random draws)", bands=bands,
+    )
+
+
+# ------------------------------------------------- front-end training ----
+
+
+def frontend_train_check_phase(device):
+    """Two front-end train steps on the card and two on the CPU, float64, at
+    a small size (32 px, descriptor and embedding 8, batch 2, dropout 0.1
+    with keep masks drawn once on the CPU), from the same flax-style
+    weights, windows and render noise, with a one-step warm-up, so that
+    the first update's rate is 0 (as in the JAX package) and the second's
+    is the peak: each step's metrics, then the parameters, their change
+    over the two steps, AdamW's two moments and the BatchNorm statistics
+    agree to FRONTEND_TRAIN_CHECK_TOL (each metric relative to itself;
+    each kind of tensor normwise over the network, in the 2-norm); no
+    kernel runs (the training matcher is the plain softmax, as in
+    the JAX package).  On the card torch's AdamW takes its foreach route,
+    on the CPU its loop over the parameters."""
+    from davo_tpu_torch.data import RenderConfig, VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import FrontendExperiment, create_frontend_state, draw_render_noise
+    from davo_tpu_torch.train import make_frontend_train_step
+    from davo_tpu_torch.types import CameraViewsAndPoints
+
+    batch, size, steps = 2, 32, 2
+    config = FrontendExperiment(
+        descriptor_channels=8, embedding_size=8, batch_size=batch, warmup_steps=1,
+        window=VOWindowConfig(dtype=torch.float64), render=RenderConfig(image_size=size, dtype=torch.float64),
+    )
+    g = torch.Generator("cpu").manual_seed(8)
+    cells = (size // 8) ** 2
+    draws = [dict(
+        windows=generate_vo_window_batch(g, batch, config.window, device="cpu"),
+        noise=draw_render_noise(g, batch, M, N, config.render, torch.device("cpu")),
+        dropout_mask=torch.rand(batch * (M - 1), cells, cells, generator=g) < 0.9,
+    ) for _ in range(steps)]
+    out = []
+    for dev in (device, torch.device("cpu")):
+        state = create_frontend_state(config, dev, dropout=0.1)
+        initial = {k: p.detach().cpu().clone() for k, p in state.network.named_parameters()}
+        train_step, _ = make_frontend_train_step(state, config)
+        build.reset_launch_counts()
+        metrics = [train_step(
+            windows=CameraViewsAndPoints(*(x.to(dev) for x in d["windows"])),
+            noise={k: {n: x.to(dev) for n, x in v.items()} for k, v in d["noise"].items()},
+            dropout_mask=d["dropout_mask"].to(dev),
+        ) for d in draws]
+        if any(build.launch_counts.values()):
+            raise AssertionError(f"frontend_train_check: the train steps launched kernels {dict(build.launch_counts)}")
+        tensors = {}
+        for k, v in state.network.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                kind = "batch_norm_statistics" if "running_" in k else "parameters"
+                tensors[kind, k] = v.detach().cpu()
+        for k, p in state.network.named_parameters():
+            adam = state.optimizer.state[p]
+            tensors["updates", k] = p.detach().cpu() - initial[k]
+            tensors["first_moments", k] = adam["exp_avg"].cpu()
+            tensors["second_moments", k] = adam["exp_avg_sq"].cpu()
+        out.append((metrics, tensors))
+    (metrics, tensors), (cpu_metrics, cpu_tensors) = out
+
+    checks = [{name: relative_error(metrics[i][name], value) for name, value in step.items()}
+              for i, step in enumerate(cpu_metrics)]
+    # each kind normwise over the whole network, in the 2-norm: the key
+    # projection's bias has a gradient of 0 but for rounding (softmax
+    # ignores a shift of a query's logits), which AdamW turns into updates
+    # of lr * noise / eps on either side; over the network's update that
+    # noise weighs what it is, against its own largest entry it is all
+    squares = {}
+    for (kind, name), value in cpu_tensors.items():
+        err, ref = squares.get(kind, (0.0, 0.0))
+        diff = tensors[kind, name].double() - value.double()
+        squares[kind] = (err + float(torch.sum(diff * diff)), ref + float(torch.sum(value.double() ** 2)))
+    normwise = {kind: math.sqrt(err / ref) for kind, (err, ref) in squares.items()}
+    failed = [(f"step {i} {name}", e) for i, step in enumerate(checks) for name, e in step.items()]
+    failed = [(name, e) for name, e in failed + list(normwise.items()) if not e <= FRONTEND_TRAIN_CHECK_TOL]
+    if failed:
+        raise AssertionError(f"frontend_train_check: beyond {FRONTEND_TRAIN_CHECK_TOL}: {failed}")
+    for name in ("matcher.query.weight", "detector.enc1_a.conv.weight"):
+        if not float(cpu_tensors["updates", name].abs().max()) > 0:
+            raise AssertionError(f"frontend_train_check: the second update did not move {name}")
+    return dict(batch=batch, image_size=size, width=8, dropout=0.1, dtype="float64", steps=steps,
+                warmup_steps=config.warmup_steps, learning_rate=config.learning_rate,
+                weight_decay=config.weight_decay, tolerance=FRONTEND_TRAIN_CHECK_TOL,
+                metrics=checks, normwise=normwise,
+                key_bias_update_max={side: float(t["updates", "matcher.key.bias"].abs().max())
+                                     for side, t in (("card", tensors), ("cpu", cpu_tensors))},
+                loss_card=[float(m["loss"]) for m in metrics], loss_cpu=[float(m["loss"]) for m in cpu_metrics])
+
+
+def frontend_reference_curve():
+    """The JAX package's fit-frontend run (frontend_v4, 96 px): per epoch
+    its train loss, validation loss and match_inlier_rate."""
+    curve = {}
+    with open(FRONTEND_REFERENCE_LOG) as f:
+        for line in f:
+            record = json.loads(line)
+            if record.get("split") in ("train", "val"):
+                entry = curve.setdefault(record["epoch"], {})
+                entry[f"{record['split']}_loss"] = record["loss"]
+                if record["split"] == "val":
+                    entry["match_inlier_rate"] = record["match_inlier_rate"]
+    return curve
+
+
+def frontend_train_phase(device):
+    """fit_frontend at the frontend_v4 recipe's full width from a
+    flax-style init for FRONTEND_EPOCHS epochs, its launches read per split
+    through fit_frontend's log_fn (counted from 0 just before the run, read
+    and reset at each split's log); then, outside the counted run, each
+    train step timed alone, a profiler window over PROFILED_STEPS steps,
+    and the checkpoint round trip (saved as fit-frontend saves it, read by
+    load_frontend, its eval forward equal to the trained module's)."""
+    import dataclasses
+
+    from davo_tpu_torch.data import RenderConfig, VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.models import load_frontend
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import (
+        FrontendExperiment,
+        batch_generator,
+        fit_frontend,
+        make_frontend_train_step,
+        render_scene_batch,
+        save_frontend_checkpoint,
+    )
+
+    config = dataclasses.replace(
+        FrontendExperiment(), epochs=FRONTEND_EPOCHS, render=RenderConfig(image_size=FRONTEND_IMAGE_SIZE)
+    )
+    reference = frontend_reference_curve()
+    launches = {"train": [], "val": []}
+    epochs = []
+
+    def log_fn(split, epoch, metrics):
+        launches[split].append(build.launch_counts["match_attention"])
+        build.reset_launch_counts()
+        if split == "val":
+            train = history_so_far[-1]
+            epochs.append(dict(
+                epoch=epoch, train_loss=train["loss"], val_loss=metrics["loss"],
+                match_inlier_rate=metrics["match_inlier_rate"], epoch_seconds=train["epoch_seconds"],
+                jax=reference.get(epoch),
+            ))
+            print(json.dumps({"frontend_train_epoch": epochs[-1]}), flush=True)
+        else:
+            history_so_far.append(metrics)
+
+    history_so_far = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    start = time.perf_counter()
+    state, history = fit_frontend(config, log_fn=log_fn, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches["train"]):
+        raise AssertionError(f"frontend_train: the train steps launched K3 {launches['train']}")
+    if not all(n > 0 for n in launches["val"]):
+        raise AssertionError(f"frontend_train: a validation never launched K3 {launches['val']}")
+    last = epochs[-1]
+    ref = reference[last["epoch"]]
+    loss_band = (FRONTEND_LOSS_BAND[0] * ref["val_loss"], FRONTEND_LOSS_BAND[1] * ref["val_loss"])
+    if not (math.isfinite(last["val_loss"]) and loss_band[0] <= last["val_loss"] <= loss_band[1]):
+        raise AssertionError(f"frontend_train: validation loss {last['val_loss']} outside {loss_band}")
+    inlier_floor = FRONTEND_INLIER_FLOOR * ref["match_inlier_rate"]
+    if not last["match_inlier_rate"] >= inlier_floor:
+        raise AssertionError(f"frontend_train: match_inlier_rate {last['match_inlier_rate']} below {inlier_floor}")
+
+    # outside the counted run: each step timed alone, then a profiler window
+    train_step, _ = make_frontend_train_step(state, config)
+    step_seconds = []
+    for i in range(FRONTEND_TIMED_STEPS):
+        generator = batch_generator(device, config.seed, FRONTEND_EPOCHS, 0, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(generator)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+    extra = itertools.count(FRONTEND_TIMED_STEPS)
+    busy = profile_steps(lambda: train_step(batch_generator(device, config.seed, FRONTEND_EPOCHS, 0, next(extra))))
+
+    # the checkpoint round trip
+    windows = generate_vo_window_batch(torch.Generator(device).manual_seed(5), 64, VOWindowConfig(), device=device)
+    images = render_scene_batch(torch.Generator(device).manual_seed(6), windows, config.render)
+    trained = state.network(images, training=False)
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        save_frontend_checkpoint(checkpoint_dir, len(history["train"]), state.network, config)
+        loaded, render = load_frontend(checkpoint_dir, device=device)
+    reloaded = loaded(images)
+    round_trip = max(float((getattr(reloaded, k).float() - getattr(trained, k).float()).abs().max())
+                     for k in ("points", "scores", "matched", "matches", "match_visibility"))
+    if round_trip != 0.0 or render.image_size != FRONTEND_IMAGE_SIZE:
+        raise AssertionError(f"frontend_train: the reloaded checkpoint differs by {round_trip}")
+    tail = sorted(step_seconds)
+    return dict(
+        epochs=epochs, recipe=dict(batch=config.batch_size, batches_per_epoch=config.batches_per_epoch,
+                                   val_batches=config.val_batches, image_size=FRONTEND_IMAGE_SIZE,
+                                   learning_rate=config.learning_rate, warmup_steps=config.warmup_steps),
+        fit_seconds=seconds, epoch_seconds=[e["epoch_seconds"] for e in epochs],
+        median_step_s=(tail[len(tail) // 2 - 1] + tail[len(tail) // 2]) / 2, peak_memory_gb=peak,
+        k3_launches_train=launches["train"], k3_launches_val=launches["val"],
+        launches=dict(match_attention=sum(launches["val"])), step_profile=busy,
+        bands=dict(val_loss=loss_band, match_inlier_rate_floor=inlier_floor, epoch=last["epoch"]),
+        jax_reference_source="artifacts/frontend_v4_metrics.jsonl (jax.random draws, 600 epochs)",
+        checkpoint_round_trip_max_diff=round_trip,
+    )
 
 
 def main():
@@ -1366,6 +1726,9 @@ def main():
         ("eval_restarts", lambda: eval_restarts_phase(device)),
         ("train_check", lambda: train_check_phase(device)),
         ("train", lambda: train_phase(device)),
+        ("eval_lbfgs", lambda: eval_lbfgs_phase(device)),
+        ("frontend_train_check", lambda: frontend_train_check_phase(device)),
+        ("frontend_train", lambda: frontend_train_phase(device)),
     ):
         t0 = time.perf_counter()
         paths[label] = fn()
@@ -1375,7 +1738,9 @@ def main():
     # launches: each kernel's count on the path that drives it, counted
     # from 0 just before the path and read just after: K1-K3 on the
     # learned-match window requests (without their comparison), K4 on the
-    # fused-objective entry points, K1' on the tuning sweep
+    # fused-objective entry points, K1' on the tuning sweep; beside it, its
+    # count on every path that launched it (K2 on the L-BFGS eval, K3 in
+    # the front end's validation)
     kernels = []
     for name, label, path, counter, source, replaces in (
         ("K1 bfgs_update", "k1_serve_f32", "frontend_serve", "bfgs_update", "davo_tpu_torch/csrc/bfgs_update.cu",
@@ -1396,6 +1761,9 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path]["launches"][counter], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            # every path that launched it, each counted from 0 just before it
+            launches_by_path={p: paths[p]["launches"][counter] for p in LAUNCH_PATHS
+                              if paths[p]["launches"].get(counter, 0) > 0},
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -1,5 +1,5 @@
-"""Command-line entry of the port (the ``fit`` and ``eval`` subcommands of
-``davo_tpu/cli.py``).
+"""Command-line entry of the port (the ``fit``, ``eval`` and
+``fit-frontend`` subcommands of ``davo_tpu/cli.py``).
 
     python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
         --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
@@ -7,7 +7,9 @@
         --checkpoint-dir <dir holding checkpoint_<step>.pkl> \\
         --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8 \\
         [--restart-proposals noise|permutation|input_noise|tokens] [--selection error|basin] \\
-        [--basin-anchor W] [--guess-tokens E]
+        [--basin-anchor W] [--guess-tokens E] [--solver lbfgs [--lbfgs-history M]]
+    python -m davo_tpu_torch.cli fit-frontend --image-size 96 --epochs 600 \\
+        --checkpoint-dir <dir> --metrics-file <file.jsonl>
 
 ``fit`` trains the preset (``train/calibration.py::fit``: checkpoints of
 the whole state every 25 epochs and at the end in ``--checkpoint-dir``,
@@ -20,10 +22,17 @@ package's ``restore_checkpoint`` read) and ``{"final_val": ...}`` last.
 ``--batches`` batches of ``--batch-size`` scenes for the eval metrics and
 four more for the trajectory accuracy, and prints one JSON line: the mean
 eval metrics and ``ate_rmse_mean``, ``ate_rmse_median``, ``f_error_mean``
-and ``centre_error_mean``.  Both run on the card; ``--platform cpu``
-selects the CPU.  Scenes are drawn by ``torch.Generator``s seeded from
-``--seed``, not by ``jax.random``, so the figures match the JAX package's
-statistically.
+and ``centre_error_mean``.  ``--solver lbfgs`` swaps the preset's BFGS
+for L-BFGS (the shared fields carried over, the memory from
+``--lbfgs-history``), in ``fit`` and ``eval``.  ``fit-frontend`` trains
+the visual front end (``train/frontend.py::fit_frontend``), prints a JSON
+line per split and epoch, saves ``{"params", "batch_stats"}`` at step
+``epochs`` in ``--checkpoint-dir`` with its ``frontend_config.json``
+(which ``models/convert.py::load_frontend`` and the JAX package read),
+and prints ``{"final": ...}`` last.  Every subcommand runs on the card;
+``--platform cpu`` selects the CPU.  Scenes are drawn by
+``torch.Generator``s seeded from ``--seed``, not by ``jax.random``, so
+the figures match the JAX package's statistically.
 """
 
 from __future__ import annotations
@@ -74,8 +83,44 @@ def _apply_overrides(config, args):
         value = getattr(args, field, None)
         if value is not None:
             updates[field] = value
+    if updates:
+        config = dataclasses.replace(config, **updates)
     if getattr(args, "solver", None) == "lbfgs":
-        raise NotImplementedError("--solver lbfgs: L-BFGS is not ported yet (ROADMAP.md Queue 1 item 4)")
+        from davo_tpu_torch.solve import LBFGSConfig
+
+        # the fields the two configs share carry over; the memory from the flag
+        shared = {f.name for f in dataclasses.fields(LBFGSConfig)} & {
+            f.name for f in dataclasses.fields(type(config.solver))
+        }
+        kwargs = {k: getattr(config.solver, k) for k in shared}
+        if getattr(args, "lbfgs_history", None):
+            kwargs["history"] = args.lbfgs_history
+        config = dataclasses.replace(config, solver=LBFGSConfig(**kwargs))
+    return config
+
+
+def _frontend_config(args):
+    """The front-end experiment with ``fit-frontend``'s overrides (the JAX
+    CLI's: ``--select`` defaults to ``--points``, ``--image-size`` sets the
+    rendered size)."""
+    from davo_tpu_torch.train import FrontendExperiment
+
+    config = FrontendExperiment()
+    updates = {}
+    for cli_name, field in (
+        ("epochs", "epochs"), ("batch_size", "batch_size"), ("batches_per_epoch", "batches_per_epoch"),
+        ("image_size", "image_size"), ("points", "num_points"), ("views", "num_views"),
+        ("learning_rate", "learning_rate"), ("seed", "seed"),
+    ):
+        value = getattr(args, cli_name, None)
+        if value is not None:
+            updates[field] = value
+    if args.select:
+        updates["num_select"] = args.select
+    if "num_points" in updates:
+        updates.setdefault("num_select", updates["num_points"])
+    if updates.get("image_size"):
+        updates["render"] = dataclasses.replace(config.render, image_size=updates.pop("image_size"))
     return dataclasses.replace(config, **updates) if updates else config
 
 
@@ -95,7 +140,27 @@ def _build_parser() -> argparse.ArgumentParser:
     eval_p.add_argument(
         "--basin-anchor", type=float, default=None, help="basin-score pull towards the guess focal (0 disables)"
     )
+    fe_p = sub.add_parser("fit-frontend", help="train the visual front end (detector + attention matcher)")
+    for flag, kind in (("--epochs", int), ("--batch-size", int), ("--batches-per-epoch", int), ("--image-size", int),
+                       ("--points", int), ("--views", int), ("--learning-rate", float), ("--seed", int)):
+        fe_p.add_argument(flag, type=kind, default=None)
+    fe_p.add_argument("--select", type=int, default=None, help="solver-facing tracks per window (default: --points)")
+    fe_p.add_argument("--checkpoint-dir", default=None)
+    fe_p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
+    fe_p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
+    fe_p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
     return parser
+
+
+def _fit_frontend(args, device, logger) -> dict:
+    from davo_tpu_torch.train import fit_frontend, save_frontend_checkpoint
+
+    config = _frontend_config(args)
+    state, history = fit_frontend(config, log_fn=logger, device=device)
+    if args.checkpoint_dir:
+        path = save_frontend_checkpoint(args.checkpoint_dir, len(history["train"]), state.network, config)
+        print(f"checkpoint: {path}", flush=True)
+    return {"final": history["val"][-1] if history["val"] else history["train"][-1]}
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
@@ -118,8 +183,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     if args.platform is not None and args.platform not in _PLATFORMS:
         raise ValueError(f"--platform must be one of {sorted(_PLATFORMS)}, got {args.platform!r}")
     device = resolve_device(None if args.platform is None else _PLATFORMS[args.platform])
-    config = _apply_overrides(get_preset(args.preset), args)
     logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir)
+    if args.command == "fit-frontend":
+        return _fit_frontend(args, device, logger)
+    config = _apply_overrides(get_preset(args.preset), args)
 
     if args.command == "fit":
         _, history = fit(config, log_fn=logger, checkpoint_dir=args.checkpoint_dir, device=device)

@@ -12,6 +12,7 @@ from .convert import (
     load_flax_weights,
     state_dict_to_flax,
     frontend_state_dict,
+    frontend_state_to_flax,
     load_calibration_network,
     load_frontend,
     load_frontend_npz,
@@ -33,6 +34,7 @@ __all__ = [
     "load_flax_weights",
     "state_dict_to_flax",
     "frontend_state_dict",
+    "frontend_state_to_flax",
     "load_calibration_network",
     "load_frontend",
     "load_frontend_npz",

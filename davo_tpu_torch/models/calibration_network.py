@@ -14,7 +14,9 @@ observation-jittered scenes; "tokens": the transformer head's E readout
 tokens) and keeps, per scene, the estimate of lowest reprojection error
 ("error" selection) or of lowest basin score ("basin": the error plus
 plausibility penalties).  Every eval solve runs on the fused objective:
-kernel K2 for the value+gradient, kernel K1 for the Hessian update.
+kernel K2 for the value+gradient, and, under BFGS, kernel K1 for the
+Hessian update (the solver is BFGS or, for an ``LBFGSConfig``, L-BFGS,
+whose two-loop recursion has no dense Hessian and no kernel).
 
 Training (``training=True``): one start, the unrolled differentiable
 solve on the plain objective (autograd of ``calibration_error``; neither
@@ -48,7 +50,7 @@ from davo_tpu_torch.camera import (
     num_calibration_parameters,
 )
 from davo_tpu_torch.ops.calibration_obj import make_fused_calibration_objective
-from davo_tpu_torch.solve import BFGSConfig, bfgs_solve
+from davo_tpu_torch.solve import BFGSConfig, LBFGSConfig, bfgs_solve, lbfgs_solve
 from davo_tpu_torch.utils.device import resolve_device
 from davo_tpu_torch.utils.precision import full_f32_matmuls
 
@@ -202,25 +204,28 @@ class CalibrationTransformerHead(nn.Module):
 
 @torch.no_grad()
 def flax_style_init_(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Initialise ``module`` in place as flax initialises the JAX network:
+    """Initialise ``module`` in place as flax initialises the JAX networks:
     ``lecun_normal`` kernels (a normal truncated at two standard
     deviations, variance 1 / fan_in) and zero biases on every dense
-    projection (the attention's per-head projections have fan_in = d, as
-    their flattened ``Linear`` weights do), normal(0.02) embeddings and
-    readout tokens, unit scales and zero offsets on the norms, BatchNorm
-    running statistics 0 and 1.  ``generator`` (a CPU generator) draws
-    on the CPU; the values are then copied to the module's device."""
+    projection and convolution (fan_in = in_features for a dense layer,
+    and the attention's per-head projections have fan_in = d, as their
+    flattened ``Linear`` weights do; kh * kw * cin for a convolution),
+    normal(0.02) embeddings and readout tokens, unit scales and zero
+    offsets on the norms, BatchNorm running statistics 0 and 1.
+    ``generator`` (a CPU generator) draws on the CPU; the values are then
+    copied to the module's device."""
     for sub in module.modules():
-        if isinstance(sub, nn.Linear):
-            std = math.sqrt(1.0 / sub.in_features) / _TRUNCATED_NORMAL_STD
+        if isinstance(sub, (nn.Linear, nn.Conv2d)):
+            std = math.sqrt(1.0 / sub.weight[0].numel()) / _TRUNCATED_NORMAL_STD
             draw = torch.empty(sub.weight.shape, dtype=torch.float64)
             nn.init.trunc_normal_(draw, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
             sub.weight.copy_(draw)
-            sub.bias.zero_()
-        elif isinstance(sub, (nn.LayerNorm, nn.BatchNorm1d)):
+            if sub.bias is not None:
+                sub.bias.zero_()
+        elif isinstance(sub, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
             sub.weight.fill_(1.0)
             sub.bias.zero_()
-            if isinstance(sub, nn.BatchNorm1d):
+            if not isinstance(sub, nn.LayerNorm):
                 sub.reset_running_stats()
         elif isinstance(sub, CalibrationTransformerHead):
             for embedding in (sub.view_embedding, sub.point_embedding, sub.readout_token):
@@ -267,7 +272,9 @@ class CalibrationNetwork(nn.Module):
     :param num_points: N tracked points per problem.
     :param hidden_size: head width; ``<= 0`` means ``4 * 2MN`` for the MLP
         head and 128 for the transformer head.
-    :param solver: configuration of the in-forward solve.
+    :param solver: configuration of the in-forward solve: a
+        :class:`BFGSConfig` (BFGS) or an :class:`LBFGSConfig` (L-BFGS),
+        on every route (training, one start, restarts).
     :param num_restarts: eval solves from this many starts per scene and
         keeps the best estimate (training always solves one start).
     :param restart_noise: std of the "noise" perturbations (and of the
@@ -293,7 +300,7 @@ class CalibrationNetwork(nn.Module):
         num_views: int,
         num_points: int,
         hidden_size: int = -1,
-        solver: BFGSConfig = BFGSConfig(error_threshold=1e-7, training_error_threshold=1e-3),
+        solver: Union[BFGSConfig, LBFGSConfig] = BFGSConfig(error_threshold=1e-7, training_error_threshold=1e-3),
         num_restarts: int = 1,
         restart_noise: float = 0.1,
         restart_proposals: str = "noise",
@@ -352,6 +359,11 @@ class CalibrationNetwork(nn.Module):
         flax_style_init_(self, generator)
         self.to(device=device, dtype=dtype)
         self.eval()
+
+    def _solve(self, *args, **kwargs):
+        """The configured solver: L-BFGS for an :class:`LBFGSConfig`, BFGS
+        otherwise."""
+        return (lbfgs_solve if isinstance(self.solver, LBFGSConfig) else bfgs_solve)(*args, **kwargs)
 
     def _apply_head(self, pixels: torch.Tensor, visibility: torch.Tensor, training: bool) -> torch.Tensor:
         if self.head == "mlp":
@@ -426,7 +438,7 @@ class CalibrationNetwork(nn.Module):
         def error_function(parameters):
             return calibration_error(parameters, pixels, visibility)
 
-        result = bfgs_solve(
+        result = self._solve(
             error_function, initial_guess, self.solver, training=True, generator=generator, keep_masks=keep_masks
         )
         if return_error:
@@ -442,7 +454,7 @@ class CalibrationNetwork(nn.Module):
         restarts = max(self.num_restarts, 1)
         if restarts == 1:
             error_fn, value_and_grad_fn = make_fused_calibration_objective(pixels, visibility)
-            return bfgs_solve(error_fn, initial_guess, self.solver, value_and_grad_fn=value_and_grad_fn)
+            return self._solve(error_fn, initial_guess, self.solver, value_and_grad_fn=value_and_grad_fn)
 
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
@@ -492,7 +504,7 @@ class CalibrationNetwork(nn.Module):
         error_fn, value_and_grad_fn = make_fused_calibration_objective(
             pixels.repeat_interleave(restarts, dim=0), visibility.repeat_interleave(restarts, dim=0)
         )
-        solved = bfgs_solve(
+        solved = self._solve(
             error_fn, starts.reshape(batch * restarts, p), self.solver, value_and_grad_fn=value_and_grad_fn
         ).reshape(batch, restarts, p)
         if self.selection == "basin":

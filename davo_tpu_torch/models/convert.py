@@ -31,12 +31,16 @@ before placing the array on a device.  Any other global is refused.
 
 :func:`frontend_state_dict` maps a flax ``VOFrontend``'s ``params`` and
 ``batch_stats`` onto the port's :class:`VOFrontend` (convolution kernels
-``HWIO`` become ``OIHW``).  The front end's Orbax checkpoint is carried as
+``HWIO`` become ``OIHW``), and :func:`frontend_state_to_flax` maps the
+port's front end back to them (the port's ``fit-frontend`` writes its
+checkpoints with it).  The front end's Orbax checkpoint is carried as
 numpy in ``davo_tpu_torch/weights/frontend_v4.npz`` (keys
 ``params/detector/enc1_a/conv/kernel`` and so on, exported once from
 ``artifacts/ckpt_frontend_v4`` and checked against it by the tests) with
 its ``frontend_config.json`` beside it as ``frontend_v4.json``;
-:func:`load_frontend` builds the module from them as the JAX package's
+:func:`load_frontend` builds the module from them, or from a checkpoint
+directory that the port's ``fit-frontend`` wrote (``checkpoint_<step>.pkl``
+and ``frontend_config.json``), as the JAX package's
 ``cli.py::_load_frontend_fn`` does.
 """
 
@@ -65,6 +69,7 @@ __all__ = [
     "FRONTEND_V4",
     "load_frontend_npz",
     "frontend_state_dict",
+    "frontend_state_to_flax",
     "load_frontend",
 ]
 
@@ -330,6 +335,37 @@ def frontend_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torc
     return {k: torch.tensor(v) for k, v in sd.items()}
 
 
+def _unconv(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": _numpy(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)}  # OIHW -> HWIO
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _numpy(sd[f"{prefix}.bias"])
+    return out
+
+
+def frontend_state_to_flax(state_dict: Mapping) -> Tuple[dict, dict]:
+    """Flax-named numpy ``(params, batch_stats)`` of the port's
+    :class:`VOFrontend` ``state_dict``: the reverse of
+    :func:`frontend_state_dict`.  Keys without running statistics (the
+    gradients or optimiser moments keyed by parameter name) give empty
+    ``batch_stats``."""
+    det: dict = {}
+    stats: dict = {}
+    for name in _CONV_BLOCKS:
+        pre = f"detector.{name}"
+        det[name] = {"conv": _unconv(state_dict, f"{pre}.conv"), "norm": _unnorm(state_dict, f"{pre}.norm")}
+        if f"{pre}.norm.running_mean" in state_dict:
+            stats[name] = {"norm": {
+                "mean": _numpy(state_dict[f"{pre}.norm.running_mean"]),
+                "var": _numpy(state_dict[f"{pre}.norm.running_var"]),
+            }}
+    det["bottleneck"] = _unconv(state_dict, "detector.bottleneck")
+    for name in ("up1", "up2", "up3"):
+        det[name] = {"upscale": {"smooth": _unconv(state_dict, f"detector.{name}.upscale.smooth")}}
+    det["point_head"] = _unconv(state_dict, "detector.point_head")
+    matcher = {name: _unlinear(state_dict, f"matcher.{name}") for name in ("query", "key")}
+    return {"detector": det, "matcher": matcher}, ({"detector": stats} if stats else {})
+
+
 def load_frontend(
     path: Union[str, Path] = FRONTEND_V4,
     *,
@@ -341,11 +377,13 @@ def load_frontend(
 ) -> Tuple[VOFrontend, RenderConfig]:
     """The front end and its :class:`RenderConfig` from a ``.npz`` of
     weights and the ``frontend_config.json`` fields beside it (``.json``
-    of the same name): ``num_select`` (else ``default_points``),
-    ``descriptor_channels``, ``embedding_size`` and ``image_size``.
-    ``gates`` override the :class:`VOFrontend` verification-gate defaults."""
+    of the same name), or from a checkpoint directory of ``fit-frontend``
+    (its latest ``checkpoint_<step>.pkl`` and its ``frontend_config.json``):
+    ``num_select`` (else ``default_points``), ``descriptor_channels``,
+    ``embedding_size`` and ``image_size``.  ``gates`` override the
+    :class:`VOFrontend` verification-gate defaults."""
     path = Path(path)
-    arch_path = path.with_suffix(".json")
+    arch_path = path / "frontend_config.json" if path.is_dir() else path.with_suffix(".json")
     arch = json.loads(arch_path.read_text()) if arch_path.exists() else {}
     render_config = RenderConfig(image_size=arch.pop("image_size", image_size), dtype=dtype)
     frontend = VOFrontend(
@@ -356,7 +394,12 @@ def load_frontend(
         dtype=dtype,
         **gates,
     )
-    tree = load_frontend_npz(path)
+    if path.is_dir():
+        from davo_tpu_torch.train.checkpoint import restore_checkpoint  # the trainer's reader imports this module
+
+        tree = restore_checkpoint(str(path))
+    else:
+        tree = load_frontend_npz(path)
     state = frontend_state_dict(tree["params"], tree.get("batch_stats", {}))
     # BatchNorm's step counter has no flax counterpart; keep the module's own
     for key, value in frontend.state_dict().items():

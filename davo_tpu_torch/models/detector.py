@@ -1,6 +1,6 @@
 """Convolutional feature detector (U-Net) producing per-location feature
 coordinates, descriptors and detection scores (the port of
-``davo_tpu/models/detector.py``, eval mode).
+``davo_tpu/models/detector.py``).
 
 The image is augmented with normalised u/v coordinate channels; a strided
 encoder stack downsamples by 64 (96 px -> 2 cells); a bottleneck plus
@@ -18,7 +18,12 @@ same function:
   every convolution pads explicitly;
 * ``jax.image.resize(method="nearest")`` samples at half-pixel centres:
   torch's ``nearest-exact`` (2 -> 3 gives rows [0, 1, 1]);
-* BatchNorm (epsilon 1e-5, running statistics) comes after the ReLU.
+* BatchNorm (epsilon 1e-5) comes after the ReLU.  In eval it normalises
+  with the running statistics; in training (``training=True``) with the
+  batch's mean and biased variance ``E[x^2] - E[x]^2`` over (N, H, W),
+  and it moves the running statistics by ``0.99 * running + 0.01 *
+  batch`` on that same biased variance, as flax does (torch's own update
+  takes the unbiased variance and momentum 0.1).
 
 Tensors are NCHW inside the module; the public interface keeps the JAX
 package's layout: images ``(B, H, W, C)``, features ``(B, K, .)`` with
@@ -42,6 +47,7 @@ __all__ = [
 ]
 
 _BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm
+_BATCH_NORM_MOMENTUM = 0.99  # flax nn.BatchNorm: running = m * running + (1 - m) * batch
 
 
 def same_padding(size: int, kernel: int, stride: int):
@@ -136,16 +142,36 @@ class UpscaleWithSkipModule(nn.Module):
         return self.upscale(x, skip.shape[-2:]) + skip
 
 
+class _FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``BatchNorm2d`` (NCHW) with flax's training semantics (the module
+    docstring); eval mode is torch's own inference normalisation."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=_BATCH_NORM_EPS)
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        if not training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        mean = torch.mean(x, dim=(0, 2, 3))
+        var = torch.clamp(torch.mean(torch.square(x), dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            m = _BATCH_NORM_MOMENTUM
+            self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+            self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+
+
 class _ConvBlock(nn.Module):
     """Strided conv, ReLU, then BatchNorm (NCHW)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 2):
         super().__init__()
         self.conv = _SameConv(in_channels, features, kernel, stride=stride)
-        self.norm = nn.BatchNorm2d(features, eps=_BATCH_NORM_EPS)
+        self.norm = _FlaxBatchNorm2d(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(F.relu(self.conv(x)))
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        return self.norm(F.relu(self.conv(x)), training)
 
 
 class FeatureDetectionModule(nn.Module):
@@ -174,8 +200,10 @@ class FeatureDetectionModule(nn.Module):
         self.up3 = UpscaleWithSkipModule(d, d)
         self.point_head = _SameConv(d + 2, 3, 3)
 
-    def forward(self, image: torch.Tensor) -> FeaturePoints:
+    def forward(self, image: torch.Tensor, *, training: bool = False) -> FeaturePoints:
         """:param image: ``(B, H, W, C)``.
+        :param training: BatchNorm on the batch's statistics, moving the
+            running ones (the module docstring).
         :return: ``FeaturePoints`` with ``points (B, K, 2)``, ``descriptors
             (B, K, D)`` and ``scores (B, K)`` (detection logits)."""
         b, h, w, _ = image.shape
@@ -186,13 +214,13 @@ class FeatureDetectionModule(nn.Module):
         coords = torch.stack([uu, vv], dim=0).expand(b, 2, h, w)
         x = torch.cat([image.permute(0, 3, 1, 2), coords], dim=1)  # NCHW
 
-        x = self.enc1_a(x)
-        x = self.enc1_b(x)
-        x = self.enc1_c(x)
+        x = self.enc1_a(x, training)
+        x = self.enc1_b(x, training)
+        x = self.enc1_c(x, training)
         points_map, skip1 = x[:, 0:2], x[:, 2:]
-        skip2 = self.enc2(skip1)
-        skip3 = self.enc3(skip2)
-        x = self.enc4(skip3)
+        skip2 = self.enc2(skip1, training)
+        skip3 = self.enc3(skip2, training)
+        x = self.enc4(skip3, training)
         x = F.relu(self.bottleneck(x))
         x = self.up1(x, skip3)
         x = self.up2(x, skip2)

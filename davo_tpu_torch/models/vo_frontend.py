@@ -1,5 +1,5 @@
 """Visual front end: images -> fixed-N matched coordinates (the port of
-``davo_tpu/models/vo_frontend.py``, window path, eval mode).
+``davo_tpu/models/vo_frontend.py``, window path).
 
 A conv feature detector runs on every view of a keyframe window, the
 attention matcher regresses each of the anchor view's features into every
@@ -15,6 +15,14 @@ consistency (a second K3 call with the roles swapped), the detection
 score threshold, the selection's quality bonus, the soft-gate floor
 (failed gates keep a weight instead of being dropped) and centroid
 refinement of the detections.
+
+In training (``training=True``, as the JAX module's argument; the
+module's own mode is not read) the detector normalises with the batch
+statistics and moves its BatchNorm running statistics as flax does, the
+matcher takes its plain softmax route (K3 is forward-only) with
+attention dropout when ``dropout > 0``, and the graph is kept;
+everything after the matcher is as in eval.  The eval forward runs
+without a graph.
 
 Sequential tracking (``track_sequence``, ``_track_sequence_impl``) and
 ``frontend_detect`` belong to the incremental-VO slice of the port.
@@ -102,6 +110,7 @@ class VOFrontend(nn.Module):
     :param num_select: N — matches handed to the solver per window.
     :param descriptor_channels: detector descriptor width.
     :param embedding_size: matcher key/query projection width.
+    :param dropout: the matcher's attention dropout in training.
     :param image_channels: channels of the rendered views.
     :param device: where the module lives — the card unless the caller
         asks for another.
@@ -114,6 +123,7 @@ class VOFrontend(nn.Module):
         num_select: int = 8,
         descriptor_channels: int = 64,
         embedding_size: int = 64,
+        dropout: float = 0.0,
         match_confidence_threshold: float = 0.0,
         nms_radius: float = 0.0,
         snap_radius: float = 0.0,
@@ -143,20 +153,36 @@ class VOFrontend(nn.Module):
         self.centroid_radius_px = centroid_radius_px
         self.soft_gate_floor = soft_gate_floor
         self.detector = FeatureDetectionModule(image_channels, descriptor_channels)
-        self.matcher = FeatureMatchModule(descriptor_channels, embedding_size)
+        self.matcher = FeatureMatchModule(descriptor_channels, embedding_size, dropout)
         self.to(device=device, dtype=dtype)
-        self.eval()
+        self.eval()  # not read: the forward's ``training`` selects the route
 
-    @torch.no_grad()
-    def forward(self, images: torch.Tensor, *, track_sequence: bool = False) -> FrontendOutput:
+    def forward(
+        self,
+        images: torch.Tensor,
+        *,
+        training: bool = False,
+        track_sequence: bool = False,
+        generator: Optional[torch.Generator] = None,
+        dropout_mask: Optional[torch.Tensor] = None,
+    ) -> FrontendOutput:
         """:param images: ``(B, M, H, W, C)`` window views.
+        :param training: the training forward (the module docstring).
+        :param generator: draws the matcher's dropout keep masks in training.
+        :param dropout_mask: ``(B * (M - 1), K, K)`` boolean keep mask of the
+            anchor-to-view matcher call instead of the generator's draw.
         :return: :class:`FrontendOutput`."""
         if track_sequence:
             raise NotImplementedError("sequential tracking is ported with the incremental-VO slice")
-        if self.training:
-            raise NotImplementedError("the front end's training forward is ported in a later slice")
+        if training:
+            with torch.enable_grad():
+                return self._forward(images, True, generator, dropout_mask)
+        with torch.no_grad():
+            return self._forward(images, False, None, None)
+
+    def _forward(self, images, training, generator, dropout_mask):
         b, m, h, w, c = images.shape
-        feats = self.detector(images.reshape(b * m, h, w, c))
+        feats = self.detector(images.reshape(b * m, h, w, c), training=training)
         k = feats.points.shape[1]
         flat_points = feats.points
         if self.centroid_refine_iters > 0:
@@ -182,7 +208,9 @@ class VOFrontend(nn.Module):
             descriptors=descriptors[:, 1:].reshape(b * (m - 1), k, d),
         )
         gate = self.match_confidence_threshold > 0.0
-        matched_out = self.matcher(anchor, target, return_confidence=gate)
+        matched_out = self.matcher(
+            anchor, target, training=training, return_confidence=gate, generator=generator, dropout_mask=dropout_mask
+        )
         confidence = None
         if gate:
             matched_out, conf_rest = matched_out
@@ -207,7 +235,8 @@ class VOFrontend(nn.Module):
             solver_matched = torch.where(near[..., None], snapped, matched)
             extra_valid = extra_valid & near
         if self.cycle_threshold > 0.0:
-            rev_out = self.matcher(target, anchor)  # roles swapped: a second K3 call
+            # roles swapped: a second K3 call (in training, the plain route)
+            rev_out = self.matcher(target, anchor, training=training, generator=generator)
             rev = torch.cat([points[:, 0:1], rev_out.points_b.reshape(b, m - 1, k, 2)], dim=1)
             rev_at_match = torch.take_along_dim(rev, snap_idx[..., None], dim=2)
             cycle_err = torch.sqrt(torch.sum(torch.square(rev_at_match - points[:, 0:1]), dim=-1) + 1e-12)

@@ -26,6 +26,8 @@ modes share the step:
 Training-mode knobs carry over: separate training iteration and threshold
 budgets, random early stopping (``drop_path_p``, drawn from a
 ``torch.Generator`` or injected as keep-masks) and ``return_second_last``.
+The loop (:func:`minimise`) is shared with L-BFGS, which supplies its own
+:class:`DirectionState` in place of the inverse Hessian.
 """
 
 from __future__ import annotations
@@ -225,14 +227,138 @@ def bfgs_solve(
     """
     if config.line_search_method not in ("wolfe", "backtracking"):
         raise ValueError(f"unknown line_search_method {config.line_search_method!r}")
-    if parameters.ndim != 2:
-        raise ValueError(f"expected a (B, P) batch, got shape {tuple(parameters.shape)}")
     if differentiable is None:
         differentiable = training
     if differentiable and config.fused_hessian_kernel:
         raise ValueError("fused_hessian_kernel (kernel K1) runs on the non-differentiable path only")
     if not differentiable and config.fused_hessian_kernel is False:
         raise ValueError("the eval solve always runs kernel K1; fused_hessian_kernel=False has no eval route")
+    return minimise(
+        _BFGSDirection, error_function, parameters, config, training=training, differentiable=differentiable,
+        generator=generator, keep_masks=keep_masks, value_and_grad_fn=value_and_grad_fn, direction_fn=direction_fn,
+    )
+
+
+class DirectionState:
+    """A solver's search direction and its carry through one solve of
+    :func:`minimise` (the dense inverse Hessian of BFGS, the pair history
+    of L-BFGS).  ``direction(step, delta_gradient, gradient, updating,
+    step_idx)`` takes the step just taken, the change of the gradient, the
+    new gradient and the elements still updating, and returns the search
+    direction; ``line_search`` is the Wolfe search from a unit step, and
+    ``accepted(alpha, moving)`` sees each step's size."""
+
+    def __init__(self, config):
+        self.config = config
+
+    def direction(self, step, delta_gradient, gradient, updating, step_idx):
+        raise NotImplementedError
+
+    def line_search(self, params, search_direction, error, gradient, error_function, updating):
+        return self._wolfe(params, search_direction, error, gradient, error_function, updating)
+
+    def _wolfe(self, params, search_direction, error, gradient, error_function, updating, init_alpha=None):
+        c = self.config
+        return line_search_wolfe_conditions(
+            params,
+            search_direction,
+            error,
+            gradient,
+            error_function,
+            sufficient_decrease=c.sufficient_decrease,
+            curvature=c.curvature,
+            strong=c.strong,
+            max_iterations=c.line_search_iterations,
+            max_step_size=c.max_step_size,
+            zoom_method=c.zoom_method,
+            active=updating,
+            init_alpha=init_alpha,
+        )
+
+    def accepted(self, alpha, moving):
+        pass
+
+
+class _BFGSDirection(DirectionState):
+    """The inverse-Hessian carry: kernel K1 on a channel-major ``(P, P,
+    B)`` carry in the eval solve, the unfused block on a batch-major ``(B,
+    P, P)`` one in the differentiable solve; with the warm-started and
+    backtracking line searches of :class:`BFGSConfig`."""
+
+    def __init__(self, config, params, differentiable):
+        super().__init__(config)
+        batch, p = params.shape
+        self.dtype = params.dtype
+        self.h_dtype = getattr(torch, config.hessian_dtype) if config.hessian_dtype else self.dtype
+        self.fused = not differentiable
+        eye = torch.eye(p, dtype=self.h_dtype, device=params.device)
+        if self.fused:
+            # channel-major (P, P, B) carry, as kernel K1 takes it
+            self.inverse_hessian = eye[:, :, None].expand(p, p, batch).contiguous()
+        else:
+            self.inverse_hessian = eye.expand(batch, p, p)
+        self.alpha_carry = torch.ones(batch, dtype=self.dtype, device=params.device)
+
+    def direction(self, step, delta_gradient, gradient, updating, step_idx):
+        if self.fused:
+            self.inverse_hessian, search_direction = fused_bfgs_update_direction(
+                self.inverse_hessian, step, delta_gradient, gradient, updating, step_idx == 0, step_idx == 1
+            )
+            return search_direction
+        h, search_direction = _unfused_update_direction(
+            self.inverse_hessian.to(self.dtype), step, delta_gradient, gradient, updating, step_idx
+        )
+        self.inverse_hessian = h.to(self.h_dtype)
+        return search_direction
+
+    def line_search(self, params, search_direction, error, gradient, error_function, updating):
+        config = self.config
+        init_alpha = None
+        if config.warm_start_line_search:
+            init_alpha = torch.clamp(self.alpha_carry, 1.0 / 16.0, 16.0)
+            if config.line_search_method == "backtracking":
+                # backtracking only shrinks from its first candidate: seed
+                # it at twice the last accepted step (capped)
+                init_alpha = torch.clamp(2.0 * init_alpha, max=config.warm_start_max_alpha)
+        if config.line_search_method == "backtracking":
+            return line_search_backtracking(
+                params,
+                search_direction,
+                error,
+                gradient,
+                error_function,
+                sufficient_decrease=config.sufficient_decrease,
+                max_iterations=config.line_search_iterations,
+                active=updating,
+                init_alpha=init_alpha,
+            )
+        return self._wolfe(params, search_direction, error, gradient, error_function, updating, init_alpha)
+
+    def accepted(self, alpha, moving):
+        if self.config.warm_start_line_search:
+            # failed searches (alpha 0) keep the last accepted step size
+            self.alpha_carry = torch.where(moving & (alpha > 0), alpha, self.alpha_carry)
+
+
+def minimise(
+    make_direction: Callable[..., DirectionState],
+    error_function: Callable[[torch.Tensor], torch.Tensor],
+    parameters: torch.Tensor,
+    config,
+    *,
+    training: bool,
+    differentiable: bool,
+    generator: Optional[torch.Generator],
+    keep_masks: Optional[torch.Tensor],
+    value_and_grad_fn: Optional[Callable],
+    direction_fn: Optional[Callable],
+) -> torch.Tensor:
+    """The quasi-Newton loop that :func:`bfgs_solve` and
+    :func:`~davo_tpu_torch.solve.lbfgs_solve` share (their arguments);
+    ``make_direction(config, params, differentiable)`` builds the
+    solver's :class:`DirectionState`."""
+    if parameters.ndim != 2:
+        raise ValueError(f"expected a (B, P) batch, got shape {tuple(parameters.shape)}")
     iterations, threshold = config.resolve(training)
     use_drop_path = training and config.drop_path_p > 0.0
     if use_drop_path and generator is None and keep_masks is None:
@@ -246,9 +372,9 @@ def bfgs_solve(
         return torch.rand(batch, generator=generator, device=device) > config.drop_path_p
 
     solve = dict(
-        error_function=error_function, config=config, iterations=iterations, threshold=threshold,
-        second_last=training and config.return_second_last, keep=keep if use_drop_path else None,
-        value_and_grad_fn=value_and_grad_fn, direction_fn=direction_fn,
+        make_direction=make_direction, error_function=error_function, config=config, iterations=iterations,
+        threshold=threshold, second_last=training and config.return_second_last,
+        keep=keep if use_drop_path else None, value_and_grad_fn=value_and_grad_fn, direction_fn=direction_fn,
     )
     if differentiable:
         return _solve(parameters, differentiable=True, **solve)
@@ -257,23 +383,14 @@ def bfgs_solve(
 
 
 def _solve(
-    params, *, error_function, config, iterations, threshold, second_last, keep, value_and_grad_fn,
+    params, *, make_direction, error_function, config, iterations, threshold, second_last, keep, value_and_grad_fn,
     direction_fn, differentiable,
 ):
-    batch, p = params.shape
-    dtype = params.dtype
-    h_dtype = getattr(torch, config.hessian_dtype) if config.hessian_dtype else dtype
-    fused = not differentiable
-    eye = torch.eye(p, dtype=h_dtype, device=params.device)
-    if fused:
-        # channel-major (P, P, B) carry, as kernel K1 takes it
-        inverse_hessian = eye[:, :, None].expand(p, p, batch).contiguous()
-    else:
-        inverse_hessian = eye.expand(batch, p, p)
+    batch = params.shape[0]
+    method = make_direction(config, params, differentiable)
     gradient = torch.zeros_like(params)
     step = torch.zeros_like(params)
     updating = torch.ones(batch, dtype=torch.bool, device=params.device)
-    alpha_carry = torch.ones(batch, dtype=dtype, device=params.device)
 
     step_idx = 0
     # the eval solve stops once no element updates (a host test); the
@@ -289,15 +406,7 @@ def _solve(
             error, new_gradient = _value_and_grad_batched(error_function, params)
         updating = updating & (error.detach() > threshold)
 
-        if fused:
-            inverse_hessian, search_direction = fused_bfgs_update_direction(
-                inverse_hessian, step, new_gradient - gradient, new_gradient, updating, step_idx == 0, step_idx == 1
-            )
-        else:
-            h, search_direction = _unfused_update_direction(
-                inverse_hessian.to(dtype), step, new_gradient - gradient, new_gradient, updating, step_idx
-            )
-            inverse_hessian = h.to(h_dtype)
+        search_direction = method.direction(step, new_gradient - gradient, new_gradient, updating, step_idx)
         gradient = new_gradient
         search_direction = clamp_search_direction(
             search_direction, config.max_step_distance, config.min_step_distance
@@ -305,50 +414,14 @@ def _solve(
         if direction_fn is not None:
             search_direction = direction_fn(search_direction, params, error, step_idx)
 
-        init_alpha = None
-        if config.warm_start_line_search:
-            init_alpha = torch.clamp(alpha_carry, 1.0 / 16.0, 16.0)
-            if config.line_search_method == "backtracking":
-                # backtracking only shrinks from its first candidate: seed
-                # it at twice the last accepted step (capped)
-                init_alpha = torch.clamp(2.0 * init_alpha, max=config.warm_start_max_alpha)
-        if config.line_search_method == "backtracking":
-            alpha = line_search_backtracking(
-                params,
-                search_direction,
-                error,
-                gradient,
-                error_function,
-                sufficient_decrease=config.sufficient_decrease,
-                max_iterations=config.line_search_iterations,
-                active=updating,
-                init_alpha=init_alpha,
-            )
-        else:
-            alpha = line_search_wolfe_conditions(
-                params,
-                search_direction,
-                error,
-                gradient,
-                error_function,
-                sufficient_decrease=config.sufficient_decrease,
-                curvature=config.curvature,
-                strong=config.strong,
-                max_iterations=config.line_search_iterations,
-                max_step_size=config.max_step_size,
-                zoom_method=config.zoom_method,
-                active=updating,
-                init_alpha=init_alpha,
-            )
+        alpha = method.line_search(params, search_direction, error, gradient, error_function, updating)
         new_step = alpha[:, None] * search_direction
         step = torch.where(updating[:, None], new_step, step)
         moving = updating & (torch.linalg.vector_norm(step.detach(), dim=-1) > config.minimum_step)
         # return_second_last commits the step only where the element keeps
         # moving, so the result lags the converged iterate by one step
         params = torch.where((moving if second_last else updating)[:, None], params + new_step, params)
-        if config.warm_start_line_search:
-            # failed searches (alpha 0) keep the last accepted step size
-            alpha_carry = torch.where(moving & (alpha > 0), alpha, alpha_carry)
+        method.accepted(alpha, moving)
         updating = moving
         step_idx += 1
     return params

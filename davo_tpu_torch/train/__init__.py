@@ -19,10 +19,14 @@ from .evaluation import (
 )
 from .frontend import (
     FrontendExperiment,
+    create_frontend_state,
     draw_render_noise,
+    fit_frontend,
     frontend_eval_metrics,
     frontend_loss,
+    make_frontend_train_step,
     render_scene_batch,
+    save_frontend_checkpoint,
 )
 from .metrics import MetricsLogger
 from .presets import PRESETS, get_preset
@@ -49,8 +53,12 @@ __all__ = [
     "PRESETS",
     "get_preset",
     "FrontendExperiment",
+    "create_frontend_state",
     "draw_render_noise",
+    "fit_frontend",
+    "make_frontend_train_step",
     "frontend_eval_metrics",
     "frontend_loss",
     "render_scene_batch",
+    "save_frontend_checkpoint",
 ]

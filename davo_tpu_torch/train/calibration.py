@@ -51,7 +51,7 @@ from davo_tpu_torch.camera import BasinScoreConfig, unpack_calibration_parameter
 from davo_tpu_torch.data import SceneConfig, VOWindowConfig, generate_batch, generate_vo_window_batch
 from davo_tpu_torch.models.calibration_network import CalibrationNetwork
 from davo_tpu_torch.models.convert import flax_to_state_dict, load_flax_weights, state_dict_to_flax
-from davo_tpu_torch.solve import BFGSConfig
+from davo_tpu_torch.solve import BFGSConfig, LBFGSConfig
 from davo_tpu_torch.types import CameraViewsAndPoints
 from davo_tpu_torch.utils.device import resolve_device
 
@@ -122,7 +122,7 @@ class CalibrationExperiment:
     seed: int = 0
     dtype: torch.dtype = torch.float32
     scene: Optional[SceneConfig] = None
-    solver: BFGSConfig = BFGSConfig(
+    solver: Union[BFGSConfig, LBFGSConfig] = BFGSConfig(
         error_threshold=1e-7,
         training_error_threshold=1e-3,
         iterations=100,
@@ -343,20 +343,22 @@ def evaluate_calibration_ate(
 # ------------------------------------------------------------ training ----
 
 
-def learning_rate_schedule(config: CalibrationExperiment) -> Callable[[int], float]:
+def learning_rate_schedule(
+    learning_rate: float, total_steps: int, warmup_steps: int, kind: str = "warmup_cosine"
+) -> Callable[[int], float]:
     """The learning rate of update ``count`` (0 for the first update):
     optax's ``warmup_cosine_decay_schedule(0, lr, warmup, total, 0.1 lr)``
-    over ``epochs * batches_per_epoch`` updates (a linear warm-up over
+    over ``max(total_steps, 2)`` updates (a linear warm-up over
     ``min(warmup_steps, total // 2)``, then a cosine decay to a tenth), or
-    the constant rate."""
-    if config.schedule == "constant":
-        return lambda count: config.learning_rate
-    if config.schedule != "warmup_cosine":
-        raise ValueError(f"Unknown schedule: {config.schedule!r}")
-    total = max(config.epochs * config.batches_per_epoch, 2)
-    warmup = min(config.warmup_steps, total // 2)
+    the constant rate (``kind="constant"``)."""
+    if kind == "constant":
+        return lambda count: learning_rate
+    if kind != "warmup_cosine":
+        raise ValueError(f"Unknown schedule: {kind!r}")
+    total = max(total_steps, 2)
+    warmup = min(warmup_steps, total // 2)
     decay = max(total, warmup + 1) - warmup
-    peak, end = config.learning_rate, 0.1 * config.learning_rate
+    peak, end = learning_rate, 0.1 * learning_rate
     alpha = 0.0 if peak == 0.0 else end / peak
 
     def schedule(count: int) -> float:
@@ -383,13 +385,29 @@ def clip_by_global_norm_(gradients: List[torch.Tensor], max_norm: float) -> torc
 @dataclasses.dataclass
 class TrainState:
     """The network, its AdamW optimiser (one group of every parameter),
-    the learning-rate schedule and the count of updates applied."""
+    the learning-rate schedule and the count of updates applied (the
+    calibration network's and, with its front end, the front end
+    trainer's)."""
 
-    network: CalibrationNetwork
+    network: torch.nn.Module
     optimizer: torch.optim.AdamW
     schedule: Callable[[int], float]
     clip_norm: float
     step: int = 0
+
+    @classmethod
+    def adamw(
+        cls, network: torch.nn.Module, *, learning_rate: float, weight_decay: float, clip_norm: float,
+        total_steps: int, warmup_steps: int, schedule: str = "warmup_cosine",
+    ) -> "TrainState":
+        """``network`` with optax's ``chain(clip_by_global_norm(clip_norm),
+        adamw(schedule, weight_decay))``: AdamW over one group of every
+        parameter and :func:`learning_rate_schedule`."""
+        optimizer = torch.optim.AdamW(
+            network.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+        )
+        return cls(network, optimizer, learning_rate_schedule(learning_rate, total_steps, warmup_steps, schedule),
+                   clip_norm)
 
     def apply_gradients(self, gradients: List[torch.Tensor]) -> None:
         """Clip, then one AdamW update at the schedule's rate for the
@@ -414,11 +432,12 @@ def create_train_state(
     and its optimiser and schedule."""
     if generator is None:
         generator = batch_generator("cpu", config.seed)
-    network = config.build_network(device, generator=generator)
-    optimizer = torch.optim.AdamW(
-        network.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=config.weight_decay
+    return TrainState.adamw(
+        config.build_network(device, generator=generator), learning_rate=config.learning_rate,
+        weight_decay=config.weight_decay, clip_norm=config.clip_norm,
+        total_steps=config.epochs * config.batches_per_epoch, warmup_steps=config.warmup_steps,
+        schedule=config.schedule,
     )
-    return TrainState(network, optimizer, learning_rate_schedule(config), config.clip_norm)
 
 
 def make_train_step(state: TrainState, config: CalibrationExperiment):

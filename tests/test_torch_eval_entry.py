@@ -17,8 +17,9 @@ trajectory accuracy against the JAX package's, and the port's CLI.
   arrays.
 * ``python -m davo_tpu_torch.cli eval --platform cpu`` at a tiny size
   (a checkpoint of the tiny network, 2 restarts, a 3-iteration solve):
-  control flow and finite metrics; the refusals of what is still not
-  ported.
+  control flow and finite metrics; ``--solver lbfgs --lbfgs-history 5``
+  converts the preset's solver as the JAX CLI's ``_apply_overrides``
+  does and runs; the refusals of what is still not ported.
 """
 
 import dataclasses
@@ -42,8 +43,8 @@ from davo_tpu.solve import BFGSConfig as JBFGSConfig
 from davo_tpu.train import calibration as jc
 from davo_tpu.train import save_checkpoint as j_save_checkpoint
 from davo_tpu_torch import cli
-from davo_tpu_torch.models import flax_to_state_dict, load_numpy_checkpoint
-from davo_tpu_torch.solve import BFGSConfig
+from davo_tpu_torch.models import CalibrationNetwork, flax_to_state_dict, load_numpy_checkpoint
+from davo_tpu_torch.solve import BFGSConfig, LBFGSConfig
 from davo_tpu_torch.train import calibration as tc
 from davo_tpu_torch.train import presets, restore_checkpoint
 from davo_tpu_torch.types import CameraViewsAndPoints
@@ -189,7 +190,6 @@ def test_cli_eval_on_the_cpu(tiny, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (["--solver", "lbfgs"], "Queue 1 item 4"),
         (["--config", "experiment.yaml"], "Queue 1 item 8"),
         (["--tensorboard-dir", "tb"], "Queue 1 item 8"),
         (["--preset", "bfgs_solver_full_gradient"], "Queue 1 item 6"),
@@ -200,6 +200,46 @@ def test_cli_refuses_what_is_not_ported(extra, match):
     input-noise and token proposals run: ``tests/test_torch_fit.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         cli.run(TINY_ARGS + extra)
+
+
+@pytest.mark.parametrize(
+    "preset,history",
+    [("calibration_transformer_curriculum", "5"), ("calibration_from_oracle_matches", None)],
+    ids=["curriculum_history_5", "oracle_default_history"],
+)
+def test_lbfgs_override_converts_as_jax_does(preset, history):
+    """``--solver lbfgs`` carries the fields the preset's BFGS config shares
+    with ``LBFGSConfig`` over and takes the memory from
+    ``--lbfgs-history``, as ``davo_tpu/cli.py::_apply_overrides``."""
+    from davo_tpu import cli as j_cli
+    from davo_tpu.train import get_preset as j_get_preset
+
+    argv = ["eval", "--preset", preset, "--solver", "lbfgs"] + (["--lbfgs-history", history] if history else [])
+    args = cli._build_parser().parse_args(argv)
+    config = cli._apply_overrides(presets.get_preset(preset), args)
+    j_config = j_cli._apply_overrides(j_get_preset(preset), args)
+    assert type(config.solver).__name__ == type(j_config.solver).__name__ == "LBFGSConfig"
+    assert dataclasses.asdict(config.solver) == dataclasses.asdict(j_config.solver)
+    assert config.solver.history == (int(history) if history else 10)
+
+
+def test_cli_eval_lbfgs_on_the_cpu(monkeypatch, capsys):
+    """``eval --solver lbfgs --lbfgs-history 5`` at the tiny size: the
+    network's solves run L-BFGS (history 5) and the metrics are finite."""
+    _tiny_preset(monkeypatch)
+    solvers = []
+    original = CalibrationNetwork._solve
+
+    def spy(self, *args, **kwargs):
+        solvers.append(self.solver)
+        return original(self, *args, **kwargs)
+
+    monkeypatch.setattr(CalibrationNetwork, "_solve", spy)
+    assert cli.main(TINY_ARGS + ["--solver", "lbfgs", "--lbfgs-history", "5"]) == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"ate_rmse_mean", "f_error_mean", "loss"} <= set(printed)
+    assert all(np.isfinite(v) for v in printed.values())
+    assert solvers and all(isinstance(s, LBFGSConfig) and s.history == 5 and s.iterations == 3 for s in solvers)
 
 
 def test_checkpoint_and_preset_refusals(tmp_path):

@@ -14,8 +14,10 @@
   ``restore_checkpoint``, and the JAX network's guess head gives the
   port's guesses from it (1e-10, float64), for the MLP head (with its
   running statistics) and the transformer head.
-* ``python -m davo_tpu_torch.cli fit --platform cpu`` and ``eval
-  --selection basin --restart-proposals permutation --platform cpu`` run.
+* ``python -m davo_tpu_torch.cli fit --platform cpu`` (also with
+  ``--solver lbfgs``: the unrolled L-BFGS solve in the train steps) and
+  ``eval --selection basin --restart-proposals permutation --platform
+  cpu`` run.
 """
 
 import dataclasses
@@ -176,6 +178,25 @@ def test_cli_fit_on_the_cpu(tmp_path, capsys):
     assert set(final) >= {"loss", "mean_error", "focal_length_loss"} and all(np.isfinite(list(final.values())))
     assert lines[-2].startswith("checkpoint: ") and latest_step(str(tmp_path)) == 1
     assert len(metrics.read_text().splitlines()) == 2
+
+
+def test_cli_fit_lbfgs_on_the_cpu(monkeypatch, capsys):
+    """``fit --solver lbfgs``: the train steps run the differentiable
+    L-BFGS unroll, the validation its eval solve."""
+    from davo_tpu_torch.models import calibration_network
+
+    modes = []
+    original = calibration_network.lbfgs_solve
+
+    def spy(*args, **kwargs):
+        modes.append(kwargs.get("training", False))
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(calibration_network, "lbfgs_solve", spy)
+    assert cli.main(FIT_ARGS + ["--solver", "lbfgs", "--lbfgs-history", "4"]) == 0
+    final = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["final_val"]
+    assert set(final) >= {"loss", "mean_error"} and all(np.isfinite(list(final.values())))
+    assert True in modes and False in modes
 
 
 def test_cli_fit_resumes_from_its_checkpoint_dir(tmp_path, capsys):

@@ -1,5 +1,7 @@
 """Kernels K1, K1′, K2, K3 and K4 on the card, against their plain PyTorch
-versions; and one training step on the card against the CPU's.
+versions; one training step of the calibration network and one of the
+front end on the card against the CPU's; and the L-BFGS eval solve on the
+card (through K2) against the CPU's.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -281,3 +283,96 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     for name, value in cpu_weights.items():
         if not name.endswith("num_batches_tracked"):
             assert _normwise(weights[name], value) <= 1e-8, name
+
+
+@pytest.mark.gpu
+def test_lbfgs_eval_on_the_card_launches_k2_and_matches_the_cpu(cuda_device):
+    """The L-BFGS eval solve (history 5, 10 iterations) of 256 problems
+    through the fused objective, float32: on the card it launches K2 once an
+    iteration and never K1 (no dense H); the solved estimates of at least
+    90 % of the problems agree with the CPU solve (plain K2) to 1e-3
+    normwise (a Wolfe decision that rounding flips sends an element down
+    another path), and both lower every problem's error."""
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+    from davo_tpu_torch.solve import LBFGSConfig, lbfgs_solve
+
+    scenes = generate_batch(torch.Generator().manual_seed(3), 256, SceneConfig(), device="cpu")
+    g = torch.Generator().manual_seed(4)
+    guess = 0.1 * torch.randn(256, 45, generator=g)
+    guess[:, 0] += 1.0
+    guess[:, 5:27:3] += 1.0
+    config = LBFGSConfig(history=5, error_threshold=1e-7, iterations=10, line_search_iterations=50)
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        error_fn, value_and_grad = k2.make_fused_calibration_objective(
+            scenes.projected_points.to(device), scenes.visibility_mask.to(device)
+        )
+        build.reset_launch_counts()
+        solved = lbfgs_solve(error_fn, guess.to(device), config, value_and_grad_fn=value_and_grad)
+        launches = dict(build.launch_counts)
+        start, end = error_fn(guess.to(device)), error_fn(solved)
+        assert bool(torch.all(end <= start)), device
+        out[device.type] = (solved.cpu(), launches)
+    launches = out["cuda"][1]
+    assert launches["calibration_value_and_grad"] > 0 and launches["bfgs_update"] == 0
+    assert not any(out["cpu"][1].values())
+    diff = (out["cuda"][0] - out["cpu"][0]).abs().amax(dim=1) / out["cpu"][0].abs().amax(dim=1).clamp(min=1.0)
+    assert float((diff <= 1e-3).float().mean()) >= 0.9
+
+
+@pytest.mark.gpu
+def test_frontend_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Two front-end train steps at 32 px (descriptor and embedding 8, batch
+    2, dropout 0.1 with injected masks, a one-step warm-up, so that the
+    second update's rate is the peak), float64, on the card and on the CPU
+    from the same flax-style weights, windows and render noise: each
+    step's metrics, the parameters, their change over the two steps,
+    AdamW's two moments and the BatchNorm statistics to 1e-8 (each kind
+    normwise over the network, in the 2-norm: the key projection's bias
+    has a gradient of 0 but for rounding, which AdamW turns into updates
+    of lr * noise / eps on either side), and no kernel launched (the
+    training matcher is the plain softmax)."""
+    from davo_tpu_torch.data import RenderConfig, VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.train import FrontendExperiment, create_frontend_state, draw_render_noise
+    from davo_tpu_torch.train import make_frontend_train_step
+
+    config = FrontendExperiment(
+        descriptor_channels=8, embedding_size=8, batch_size=2, warmup_steps=1,
+        window=VOWindowConfig(dtype=torch.float64), render=RenderConfig(image_size=32, dtype=torch.float64),
+    )
+    g = torch.Generator().manual_seed(7)
+    draws = [(generate_vo_window_batch(g, 2, config.window, device="cpu"),
+              draw_render_noise(g, 2, 4, 8, config.render, torch.device("cpu")),
+              torch.rand(2 * 3, 16, 16, generator=g) < 0.9) for _ in range(2)]
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        state = create_frontend_state(config, device, dropout=0.1)
+        initial = {k: p.detach().clone() for k, p in state.network.named_parameters()}
+        train_step, _ = make_frontend_train_step(state, config)
+        build.reset_launch_counts()
+        metrics = [train_step(
+            windows=type(windows)(*(x.to(device) for x in windows)),
+            noise={k: {n: x.to(device) for n, x in v.items()} for k, v in noise.items()},
+            dropout_mask=mask.to(device),
+        ) for windows, noise, mask in draws]
+        assert not any(build.launch_counts.values())
+        tensors = {("statistic" if "running_" in k else "parameter", k): v
+                   for k, v in state.network.state_dict().items() if not k.endswith("num_batches_tracked")}
+        for k, p in state.network.named_parameters():
+            tensors["update", k] = p.detach() - initial[k]
+            tensors["first moment", k] = state.optimizer.state[p]["exp_avg"]
+            tensors["second moment", k] = state.optimizer.state[p]["exp_avg_sq"]
+        results.append((metrics, tensors))
+    (metrics, tensors), (cpu_metrics, cpu_tensors) = results
+
+    assert float(cpu_tensors["update", "matcher.query.weight"].abs().max()) > 0
+    for step, cpu_step in zip(metrics, cpu_metrics):
+        for name, value in cpu_step.items():
+            assert abs(float(step[name]) - float(value)) <= 1e-8 * abs(float(value)), name
+    squares = {}
+    for (kind, name), value in cpu_tensors.items():
+        err, ref = squares.get(kind, (0.0, 0.0))
+        diff = tensors[kind, name].double().cpu() - value.double().cpu()
+        squares[kind] = (err + float(torch.sum(diff * diff)), ref + float(torch.sum(value.double() ** 2)))
+    for kind, (err, ref) in squares.items():
+        assert err <= (1e-8) ** 2 * ref, kind

@@ -29,8 +29,6 @@ int32 count, which rounds the rate to float32 even under x64, a relative
 weights' statistics against flax's.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -217,13 +215,15 @@ def _optax_schedule(config):
 )
 def test_schedule_matches_optax(fields):
     config = tc.CalibrationExperiment(learning_rate=3e-4, **fields)
-    schedule, want = tc.learning_rate_schedule(config), _optax_schedule(config)
-    total = max(config.epochs * config.batches_per_epoch, 2)
+    steps = config.epochs * config.batches_per_epoch
+    schedule = tc.learning_rate_schedule(config.learning_rate, steps, config.warmup_steps, config.schedule)
+    want = _optax_schedule(config)
+    total = max(steps, 2)
     values = [schedule(k) for k in range(total + 5)]
     np.testing.assert_allclose(values, [float(want(k)) for k in range(total + 5)], rtol=1e-12, atol=1e-18)
     if config.warmup_steps:
         assert values[0] == 0.0  # the first update's rate under the warm-up
-    constant = tc.learning_rate_schedule(dataclasses.replace(config, schedule="constant"))
+    constant = tc.learning_rate_schedule(config.learning_rate, steps, config.warmup_steps, "constant")
     assert constant(0) == constant(1000) == 3e-4
 
 
