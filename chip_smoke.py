@@ -9,7 +9,8 @@ Phases, each printed as one JSON line with its seconds:
             and spill lines);
 3. k1, k2   each kernel against its plain PyTorch version on the card, at the
             serve shape (B = 8192, also 32 restarts of 256 scenes), the bench
-            shape (B = 16384) and the trainer's validation batch (B = 64): error
+            shape (B = 16384), the trainer's validation batch (B = 64) and
+            vo-eval's bootstrap solve (B = 8): error
             against the stated tolerance, time by CUDA events (``ms``: the
             wrapper's launches one by one from the host, as the solver makes
             them; ``graph_ms``: the same launches replayed from a CUDA graph,
@@ -17,9 +18,10 @@ Phases, each printed as one JSON line with its seconds:
             could take (bound), the share of it reached (by ``ms``), and the
             timed kernel's registers and spill bytes from ptxas;
    k3       the attention kernel against its plain version at the matcher's
-            shape (3,072 problems of 144 x 144, D = 64, C = 2) and on masked,
-            ragged inputs; its time beside the plain version's and beside
-            torch's scaled_dot_product_attention as the matcher would call
+            shape (3,072 problems of 144 x 144, D = 64, C = 2), at vo-eval's
+            (15 and 3 problems) and on masked, ragged inputs; its time
+            beside the plain version's and beside torch's
+            scaled_dot_product_attention as the matcher would call
             it (timed only as a yardstick); its bound on the tensor cores
             and, apart, on the CUDA cores alone;
    k4       the value + directional derivative kernel against its plain
@@ -35,7 +37,7 @@ Phases, each printed as one JSON line with its seconds:
             each (8,192-element BFGS solves, strong Wolfe search); latency,
             errors against ground truth, and the kernels' launch counts;
             plus the same network on a small input against the CPU run,
-            and a torch.profiler breakdown of one request (5 iterations);
+            and a torch.profiler breakdown of one request (3 iterations);
 5. frontend_serve  learned-match window calibration: 2 requests of 1,024 VO
             windows generated and rendered at 96 px on the card, the front end
             (frontend_v4 weights, every gate off as it was validated: U-Net
@@ -44,7 +46,7 @@ Phases, each printed as one JSON line with its seconds:
             matches; latency split, match_inlier_rate, errors, launch counts;
             request 0's solve watching K1's carry (its drift from symmetry,
             and, once the counts are read, what K1's y'H = (Hy)' changes
-            on it); then, outside the counted run, request 0's first 256
+            on it); then, outside the counted run, request 0's first 16
             windows solved on vo-eval's default front end (greedy NMS
             anchors) and on oracle matches; plus 8 windows through the
             front end and a 5-iteration solve on the card against the CPU
@@ -61,19 +63,21 @@ Phases, each printed as one JSON line with its seconds:
 9. eval_v4  the eval entry (python -m davo_tpu_torch.cli eval) at the JAX
             package's v4_1800 checkpoint (transformer head, embed 448, 10
             layers, 8 heads), 8 restarts, one eval batch and four ATE
-            batches of 64 scenes (eval_lbfgs's); its JSON, the seconds per
-            solve and the comparison with artifacts/eval_v4_calib.log;
+            batches of 64 scenes; its JSON, the seconds per solve and the
+            comparison with artifacts/eval_v4_calib.log;
 10. eval_restarts  the eval proposals and selections on 256 scenes a case, one
             solve each through the library's evaluate_calibration_ate: v4_1800
             with 32 noise restarts and basin selection, with 8 permutation and
             with 8 input-noise restarts (error selection), and the
             v5_tokens8 weights (8 readout tokens, architecture read from the
-            pickle) with its tokens as the 8 starts; ATE and f_error beside the
-            JAX package's logs, seconds per solve, launches;
-11. train_check  one train step (MLP head, 3-iteration unrolled solve,
-            drop-path with injected keep-masks, float64) on the card against
-            the CPU: loss, metrics, updated parameters and running statistics;
-12. train   each calibration recipe at full width: 20 train steps and 1
+            pickle) with its tokens as the 8 starts; ATE and f_error beside
+            the JAX package's logs, seconds per solve, launches;
+11. train_check  two train steps (MLP head, 3-iteration unrolled solve,
+            drop-path with injected keep-masks, a one-step warm-up, float64)
+            on the card against the CPU: each step's loss and metrics, then
+            the parameters, their update, both AdamW moments and the running
+            statistics, each kind normwise over the network;
+12. train   each calibration recipe at full width: 12 train steps and 1
             validation batch (the reference recipe's MLP head through its
             10-iteration unrolled solve, from a flax-style init; the curriculum
             transformer at v4_1800's width from its weights): losses, seconds
@@ -83,7 +87,7 @@ Phases, each printed as one JSON line with its seconds:
             reference recipe's step also under a torch.profiler window of 5
             more steps after its validation (its device busy share);
 13. eval_lbfgs  the eval entry with --solver lbfgs at v4_1800 (8 restarts, one
-            eval batch and four ATE batches of 64 scenes): K2 launched through
+            eval batch and one ATE batch of 64 scenes): K2 launched through
             the solver's value+gradient hook, K1 never (L-BFGS has no dense
             H); ATE and f_error beside artifacts/eval_v4_lbfgs.log, seconds per
             solve;
@@ -99,7 +103,17 @@ Phases, each printed as one JSON line with its seconds:
             validation), peak memory; then each step timed alone, a profiler
             window of 5 steps, and the checkpoint round trip (saved as
             fit-frontend saves it, read back by load_frontend);
-16. the kernels line (with each kernel's launches on every path that ran
+16. vo_eval  learned VO from pixels through the port's vo-eval code at the
+            official recipe (vo_windows_transformer_v6_verified, frontend_v4
+            at 96 px with the verification gates, 16 frames of 8 points, 3
+            bootstraps, ba_irls 2, no refinement), trial 0 (a generator
+            seeded 100): ATE beside the JAX log's trial 0, seconds split into
+            front end, bootstrap solves and the rest, peak memory, the
+            chosen bootstrap and every bootstrap's cost, K1-K3 launches
+            (each > 0); then the accumulator on fixed clean inputs (10
+            frames, junk detections, every robustness option), the card in
+            float32 against the CPU in float64;
+17. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -109,7 +123,7 @@ card it exits non-zero before doing anything.  Each path's launch counts
 are set to 0 just before it and read just after: K1, K2 and K3 from the
 learned-match window path, K4 from the fused-objective entry points, K1'
 from the tuning sweep, K2 from the L-BFGS eval, K3 from the front end's
-validation (its train steps read 0).
+validation (its train steps read 0), K1-K3 from the vo-eval trial.
 """
 
 import itertools
@@ -144,7 +158,10 @@ BENCH_BATCH, BENCH_ITERATIONS, BENCH_PROBES = 16384, 20, 6
 # restarts of 256 scenes, are the serve shape's)
 VAL_BATCH = 64
 M, N = 4, 8
-WINDOWS, WINDOW_REQUESTS, COMPARISON_WINDOWS = 1024, 2, 256
+# the comparison solves 16 windows: its oracle solve took 77 s at 256 and
+# 27 s at 64 (every element through 100 Wolfe iterations), which the
+# vo_eval phase's time cannot spare within the run's limit
+WINDOWS, WINDOW_REQUESTS, COMPARISON_WINDOWS = 1024, 2, 16
 # vo-eval's default front end (davo_tpu/cli.py: --nms-radius 0.1, every
 # other gate 0); the main path runs the front end as it was validated, top-k
 VO_EVAL_GATES = dict(nms_radius=0.1)
@@ -181,25 +198,27 @@ EVAL_RESTART_CASES = [
      ("recipe_evals_r5.log", "v5t_tokens8_error")),
 ]
 EVAL_RESTART_BAND = (0.6, 1.5)  # times the JAX figure
-# training: one step on the card against the CPU (float64), then each
+# training: two steps on the card against the CPU (float64), then each
 # recipe's steps, validation and a checkpoint round trip
 TRAIN_CHECK_TOL = 1e-8
-# one validation batch a recipe: each costs 11-13 s, and with two the run
-# passed 900 s of its limit on a slow host
-TRAIN_STEPS, TRAIN_VAL_BATCHES = 20, 1
+# one validation batch a recipe: each costs 11-13 s of the run's time
+# limit; 12 steps leave the median of the last 10 clear of the first
+TRAIN_STEPS, TRAIN_VAL_BATCHES = 12, 1
 RESUME_EVAL_ITERATIONS, RESUME_TOL = 10, 1e-6
 # a torch.profiler window over this many train steps gives a step's
 # device busy share; the serve profile's solve runs PROFILED_ITERATIONS
-# (the profiler's post-processing of a 10-iteration solve takes about 45 s)
-PROFILED_STEPS, PROFILED_ITERATIONS = 5, 5
-# the eval entry with L-BFGS at v4_1800: 8 restarts, one eval batch and the
-# four ATE batches of 64 scenes (256 scenes, as eval_v4_lbfgs.log's)
+# (the profiler's post-processing of a 5-iteration solve took about 40 s)
+PROFILED_STEPS, PROFILED_ITERATIONS = 5, 3
+# the eval entry with L-BFGS at v4_1800: 8 restarts, one eval batch and
+# one ATE batch of 64 scenes (eval_v4_lbfgs.log's ATE is over 256; a solve
+# costs 20-30 s of host work whatever its scenes, so the run keeps within
+# its limit with one; the band is 0.6-1.5 times the log's)
 EVAL_LBFGS_ARGS = [
     "eval", "--preset", "calibration_transformer_curriculum", "--hidden-size", "448",
     "--transformer-layers", "10", "--transformer-heads", "8", "--restarts", "8",
-    "--batch-size", "64", "--batches", "1", "--solver", "lbfgs",
+    "--batch-size", "64", "--batches", "1", "--ate-batches", "1", "--solver", "lbfgs",
 ]
-EVAL_LBFGS_SOLVES = 1 + 4
+EVAL_LBFGS_SOLVES = 1 + 1
 # the front end's training: two steps on the card against the CPU (float64,
 # a small size), then the frontend_v4 recipe at full width (4 views x 8
 # points, select 8, descriptor and embedding 64, batch 16, 64 batches and 8
@@ -210,8 +229,32 @@ FRONTEND_EPOCHS, FRONTEND_IMAGE_SIZE = 12, 96
 FRONTEND_TIMED_STEPS = 20
 FRONTEND_LOSS_BAND, FRONTEND_INLIER_FLOOR = (0.6, 1.5), 0.5  # times the JAX log's figure at the same epoch
 FRONTEND_REFERENCE_LOG = os.path.join(REPO, "artifacts", "frontend_v4_metrics.jsonl")
+# learned VO from pixels, the official recipe (README, .claude/skills/verify/
+# SKILL.md): vo_windows_transformer_v6_verified (embed 384, 8 layers, 8
+# heads; 8 restarts of the curriculum eval solver in each bootstrap window:
+# K1 and K2 at B = 8), frontend_v4 at 96 px with the verification gates
+# (K3 at 15 problems on the whole sequence, 3 on a window, each twice with
+# the cycle gate), 16 frames of 8 points, 3 bootstraps, ba_irls 2, no
+# refinement; trial 0 only (JAX's key 100: a generator seeded 100)
+VO_EVAL_ARGS = [
+    "vo-eval", "--checkpoint", os.path.join(REPO, "artifacts", "vo_windows_transformer_v6_verified.pkl"),
+    "--hidden-size", "384", "--transformer-layers", "8", "--transformer-heads", "8",
+    "--pipeline", "incremental", "--association", "geometric", "--no-refine", "--matches", "learned",
+    "--frontend-checkpoint", os.path.join(REPO, "davo_tpu_torch", "weights", "frontend_v4.npz"),
+    "--nms-radius", "0.1", "--snap-radius", "0.12", "--cycle-threshold", "0.15", "--quality-bonus", "10.0",
+    "--score-threshold", "0.2", "--centroid-refine", "2", "--ba-irls", "2", "--trials", "1",
+]
+VO_EVAL_REFERENCE_LOG = os.path.join(REPO, "artifacts", "eval_learned_v7_final.log")
+VO_BATCH = 8  # one window x 8 restarts: K1 and K2's batch in a bootstrap solve
+VO_K3_PROBLEMS = (15, 3)  # the whole sequence's 15 anchor-to-view problems; a window's 3
+# the accumulator on fixed clean inputs (the JAX test
+# test_detection_pipeline_robust_options): 10 frames of 8 points, oracle
+# detections among 12 a frame (junk elsewhere), a truth bootstrap of two
+# frames, every robustness option; the card in float32 against the CPU in
+# float64 (CPU float32 against float64 read 3e-7 and 6e-5 on two seeds)
+VO_CLEAN_ROTATION_TOL, VO_CLEAN_TRANSLATION_TOL, VO_CLEAN_ATE_TOL = 1e-4, 1e-3, 5e-3
 # the paths whose launch counts the kernels line reports
-LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train")
+LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval")
 
 
 def emit(phase, **fields):
@@ -575,6 +618,8 @@ def k3_phase(device):
         # random key masks, problem 0 fully masked, Q and K not multiples of 64
         ("masked_ragged", 512, 100, 150, K3_DEPTH, K3_WIDTH, True),
         ("masked_wide", 64, 37, 211, 100, 8, True),
+        # vo-eval's calls: the whole sequence (16 frames) and a window (4)
+        *((f"vo_{b}", b, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, False) for b in VO_K3_PROBLEMS),
     )
     for label, b, q_len, kv_len, d, c, masked in cases:
         q, k, v, mask = k3_inputs(b, q_len, kv_len, d, c, device, seed=b + q_len, masked=masked)
@@ -917,11 +962,14 @@ def carry_symmetry(solve):
 
 
 def subset_comparison(device, network, experiment, windows, images, params, error):
-    """Request 0's first 256 windows solved three ways (the same solver):
-    on the top-k learned matches (taken from the request), on vo-eval's
+    """Request 0's first COMPARISON_WINDOWS windows solved three ways (the
+    same solver): on the top-k learned matches (taken from the request), on vo-eval's
     default front end (greedy NMS, radius 0.1; every other gate off) and
-    on the oracle matches.  The NMS front end's match_inlier_rate covers
-    all 1,024 windows."""
+    on the oracle matches, the last two in one solve with each its own
+    restart draws (each element is solved on its own: in float64 the one
+    solve gives the bits of two; in float32 the head's products may round
+    otherwise at another batch).  The NMS front end's match_inlier_rate
+    covers all 1,024 windows."""
     from davo_tpu_torch.models import load_frontend
     from davo_tpu_torch.train import frontend_eval_metrics
 
@@ -933,18 +981,17 @@ def subset_comparison(device, network, experiment, windows, images, params, erro
     nms_out = nms_frontend(images)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    nms_params, nms_error = network(
-        nms_out.matches[sub], nms_out.match_visibility[sub],
-        generator=torch.Generator(device).manual_seed(4000), return_error=True,
+    draw_shape = (COMPARISON_WINDOWS, network.num_restarts - 1, params.shape[-1])
+    draws = [torch.randn(draw_shape, generator=torch.Generator(device).manual_seed(seed), device=device)
+             for seed in (4000, 3000)]
+    both_params, both_error = network(
+        torch.cat([nms_out.matches[sub], sub_windows.projected_points]),
+        torch.cat([nms_out.match_visibility[sub].to(sub_windows.visibility_mask.dtype), sub_windows.visibility_mask]),
+        restart_draws=torch.cat(draws), return_error=True,
     )
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    oracle_params, oracle_error = network(
-        sub_windows.projected_points, sub_windows.visibility_mask,
-        generator=torch.Generator(device).manual_seed(3000), return_error=True,
-    )
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
+    (nms_params, oracle_params), (nms_error, oracle_error) = both_params.chunk(2), both_error.chunk(2)
     for label, p in (("nms", nms_params), ("oracle", oracle_params)):
         if not torch.isfinite(p).all():
             raise AssertionError(f"subset comparison: the {label} solve gave non-finite values")
@@ -952,7 +999,7 @@ def subset_comparison(device, network, experiment, windows, images, params, erro
         windows=COMPARISON_WINDOWS, nms_gates=VO_EVAL_GATES,
         nms_match_inlier_rate=frontend_eval_metrics(nms_out, windows, experiment)["match_inlier_rate"].item(),
         nms_visible_match_share=nms_out.match_visibility.float().mean().item(),
-        nms_frontend_s=t1 - t0, nms_solve_s=t2 - t1, oracle_solve_s=t3 - t2,
+        nms_frontend_s=t1 - t0, nms_and_oracle_solve_s=t2 - t1,
         topk_mean_final_error=error[sub].mean().item(),
         topk_f_error_mean=focal_error(params[sub], sub_windows).mean().item(),
         nms_mean_final_error=nms_error.mean().item(),
@@ -1251,47 +1298,71 @@ def fixed_batch_experiment(batch, **fields):
 
 
 def train_check_phase(device):
-    """One train step on the card and one on the CPU, float64, from the
+    """Two train steps on the card and two on the CPU, float64, from the
     same flax-style weights, the same batch and the same keep-masks (drawn
     once on the CPU): the MLP head (hidden 32) through a 3-iteration
-    unrolled solve with drop-path 0.1, batch 16.  The loss, the metrics,
-    the updated parameters and the running statistics agree to
-    TRAIN_CHECK_TOL relative (to the largest entry of each); neither
-    kernel runs (the training solve is unfused, as in the JAX package)."""
+    unrolled solve with drop-path 0.1, batch 16, with a one-step warm-up,
+    so that the first update's rate is 0 and the second's is the peak.
+    Each step's loss and metrics agree to TRAIN_CHECK_TOL relative to
+    themselves; the parameters, their update over the two steps, AdamW's
+    two moments and the running statistics each agree to TRAIN_CHECK_TOL
+    normwise over the network, in the 2-norm; neither kernel runs (the
+    training solve is unfused, as in the JAX package)."""
     from davo_tpu_torch.data import SceneConfig, generate_batch
     from davo_tpu_torch.ops import build
     from davo_tpu_torch.solve import BFGSConfig
     from davo_tpu_torch.train import create_train_state, make_train_step
 
-    batch_size, iterations = 16, 3
+    batch_size, iterations, steps = 16, 3, 2
     batch = generate_batch(torch.Generator("cpu").manual_seed(5), batch_size,
                            SceneConfig(num_views=M, num_points=N, dtype=torch.float64), device="cpu")
-    keep_masks = torch.rand(iterations, batch_size, generator=torch.Generator("cpu").manual_seed(6)) > 0.1
+    keep_masks = torch.rand(steps, iterations, batch_size, generator=torch.Generator("cpu").manual_seed(6)) > 0.1
     config = fixed_batch_experiment(
         batch, num_views=M, num_points=N, hidden_size=32, batch_size=batch_size, dtype=torch.float64,
+        warmup_steps=1,
         solver=BFGSConfig(error_threshold=1e-7, training_error_threshold=1e-3, iterations=100,
                           training_iterations=iterations, line_search_iterations=50, drop_path_p=0.1),
     )
     out = []
     for dev in (device, torch.device("cpu")):
         state = create_train_state(config, dev)
+        initial = {k: p.detach().cpu().clone() for k, p in state.network.named_parameters()}
+        train_step = make_train_step(state, config)
         build.reset_launch_counts()
-        metrics = make_train_step(state, config)(torch.Generator(dev).manual_seed(0), keep_masks=keep_masks)
+        metrics = [train_step(torch.Generator(dev).manual_seed(i), keep_masks=keep_masks[i]) for i in range(steps)]
         launches = dict(build.launch_counts)
         if any(launches.values()):
-            raise AssertionError(f"train_check: the train step launched kernels {launches}")
-        out.append((metrics, {k: v.detach().cpu() for k, v in state.network.state_dict().items()}))
-    (metrics, weights), (cpu_metrics, cpu_weights) = out
-    checks = {name: check(f"train_check {name}", metrics[name].cpu(), cpu_metrics[name], TRAIN_CHECK_TOL)
-              for name in cpu_metrics}
-    worst = 0.0
-    for name, value in cpu_weights.items():
-        if name.endswith("num_batches_tracked"):
-            continue
-        worst = max(worst, check(f"train_check {name}", weights[name], value, TRAIN_CHECK_TOL)["normwise_rel_err"])
-    return dict(batch=batch_size, training_iterations=iterations, dtype="float64", tolerance=TRAIN_CHECK_TOL,
-                metrics=checks, worst_parameter_or_statistic_normwise=worst,
-                loss_card=float(metrics["loss"]), loss_cpu=float(cpu_metrics["loss"]))
+            raise AssertionError(f"train_check: the train steps launched kernels {launches}")
+        tensors = {}
+        for k, v in state.network.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                tensors["running_statistics" if "running_" in k else "parameters", k] = v.detach().cpu()
+        for k, p in state.network.named_parameters():
+            adam = state.optimizer.state[p]
+            tensors["updates", k] = p.detach().cpu() - initial[k]
+            tensors["first_moments", k] = adam["exp_avg"].cpu()
+            tensors["second_moments", k] = adam["exp_avg_sq"].cpu()
+        out.append(([{k: float(v) for k, v in m.items()} for m in metrics], tensors))
+    (metrics, tensors), (cpu_metrics, cpu_tensors) = out
+    checks = [{name: relative_error(metrics[i][name], value) for name, value in step.items()}
+              for i, step in enumerate(cpu_metrics)]
+    squares = {}
+    for (kind, name), value in cpu_tensors.items():
+        err, ref = squares.get(kind, (0.0, 0.0))
+        diff = tensors[kind, name].double() - value.double()
+        squares[kind] = (err + float(torch.sum(diff * diff)), ref + float(torch.sum(value.double() ** 2)))
+    normwise = {kind: math.sqrt(err / ref) for kind, (err, ref) in squares.items()}
+    failed = [(f"step {i} {name}", e) for i, step in enumerate(checks) for name, e in step.items()]
+    failed = [(name, e) for name, e in failed + list(normwise.items()) if not e <= TRAIN_CHECK_TOL]
+    if failed:
+        raise AssertionError(f"train_check: beyond {TRAIN_CHECK_TOL}: {failed}")
+    update_norm = math.sqrt(squares["updates"][1])
+    if not update_norm > 0:
+        raise AssertionError("train_check: the second update moved no parameter")
+    return dict(batch=batch_size, training_iterations=iterations, steps=steps, warmup_steps=config.warmup_steps,
+                dtype="float64", tolerance=TRAIN_CHECK_TOL, metrics=checks, normwise=normwise,
+                update_norm_cpu=update_norm, loss_card=[m["loss"] for m in metrics],
+                loss_cpu=[m["loss"] for m in cpu_metrics])
 
 
 def train_recipe(device, name, config, initial=None, profile=False):
@@ -1407,7 +1478,7 @@ def train_phase(device):
 
 def eval_lbfgs_phase(device):
     """``python -m davo_tpu_torch.cli eval --solver lbfgs`` at the v4_1800
-    checkpoint, 8 restarts, 256 scenes for the ATE, counted from 0 just
+    checkpoint, 8 restarts, 64 scenes for the ATE, counted from 0 just
     before it: K2 through the solver's value_and_grad hook, never K1 (no
     dense H); its figures beside artifacts/eval_v4_lbfgs.log within
     EVAL_RESTART_BAND."""
@@ -1650,6 +1721,131 @@ def frontend_train_phase(device):
     )
 
 
+def _timed(fn, totals, name):
+    """``fn`` with its seconds (host clock, synchronised) added to
+    ``totals[name]``."""
+    def wrapped(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        totals[name] += time.perf_counter() - t0
+        return out
+
+    return wrapped
+
+
+def vo_clean_inputs(dtype, device, seed=0):
+    """The accumulator's clean case, built without JAX: a 10-frame, 8-point
+    sequence (a CPU generator seeded ``seed``, float64), oracle detections
+    among 12 a frame (numpy's default_rng(7) places them and the junk,
+    as the JAX test does), scores 0.9 for the visible, 0.4 for junk."""
+    import numpy as np
+    from davo_tpu_torch.train.vo_eval import TrajectoryConfig, _to_window_frame, generate_trajectory
+
+    cfg = TrajectoryConfig(num_frames=10, num_points=8, dtype=torch.float64)
+    poses, _, pixels, vis = generate_trajectory(torch.Generator("cpu").manual_seed(seed), cfg, device="cpu")
+    kf, d = cfg.num_frames, 12
+    rng = np.random.default_rng(7)
+    dets = 0.95 * (2.0 * rng.random((kf, d, 2)) - 1.0)
+    scores = np.full((kf, d), 0.4)
+    for k in range(kf):
+        order = rng.permutation(d)[: cfg.num_points]
+        dets[k, order] = pixels[k].numpy()
+        scores[k, order] = np.where(vis[k].numpy(), 0.9, 0.0)
+    inputs = (dets, scores, [cfg.focal_length, 0.0, 0.0], _to_window_frame(poses[:2], poses[0]), pixels[:2], vis[:2])
+    return poses, [torch.as_tensor(x).to(device=device, dtype=dtype) for x in inputs]
+
+
+def vo_clean_accumulator(device):
+    """solve_incremental_vo_detections on the clean case with ba_irls 1,
+    pnp_ransac 4, chain_passes 2 and reject_outliers: the card in float32
+    against the CPU in float64 (rotation matrices and translations, so
+    that a rotation of pi written with either sign agrees), and the card's
+    ATE below VO_CLEAN_ATE_TOL (the JAX test's bound)."""
+    from davo_tpu_torch.geometry import so3_rotation_matrix
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train.evaluation import absolute_trajectory_error, camera_centers_from_poses
+    from davo_tpu_torch.train.vo_eval import solve_incremental_vo_detections
+
+    out = {}
+    for dev, dtype in ((device, torch.float32), (torch.device("cpu"), torch.float64)):
+        poses, inputs = vo_clean_inputs(dtype, dev)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        est, cost = solve_incremental_vo_detections(
+            *inputs, ba_irls=1, pnp_ransac=4, chain_passes=2, reject_outliers=True, return_cost=True
+        )
+        est = est.double().cpu()
+        seconds = time.perf_counter() - t0
+        ate = float(absolute_trajectory_error(camera_centers_from_poses(est[:, :3], est[:, 3:]),
+                                              camera_centers_from_poses(poses[:, :3], poses[:, 3:]))["rmse"])
+        out[dev.type] = dict(poses=est, cost=cost, ate_rmse=ate, seconds=seconds, launches=dict(build.launch_counts))
+    card, cpu = out["cuda"], out["cpu"]
+    rotation_err = float((so3_rotation_matrix(card["poses"][:, :3]) - so3_rotation_matrix(cpu["poses"][:, :3])).abs().max())
+    translation_err = float((card["poses"][:, 3:] - cpu["poses"][:, 3:]).abs().max())
+    if not (rotation_err <= VO_CLEAN_ROTATION_TOL and translation_err <= VO_CLEAN_TRANSLATION_TOL):
+        raise AssertionError(f"vo_eval clean accumulator: card against CPU rotation {rotation_err}, "
+                             f"translation {translation_err}")
+    if not card["ate_rmse"] < VO_CLEAN_ATE_TOL:
+        raise AssertionError(f"vo_eval clean accumulator: card ATE {card['ate_rmse']} >= {VO_CLEAN_ATE_TOL}")
+    if any(card["launches"].values()):
+        raise AssertionError(f"vo_eval clean accumulator launched kernels {card['launches']}")
+    return dict(frames=10, points=8, detections_per_frame=12, options="ba_irls 1, pnp_ransac 4, chain_passes 2, "
+                "reject_outliers", rotation_max_abs_err=rotation_err, translation_max_abs_err=translation_err,
+                rotation_tolerance=VO_CLEAN_ROTATION_TOL, translation_tolerance=VO_CLEAN_TRANSLATION_TOL,
+                ate_rmse_card=card["ate_rmse"], ate_rmse_cpu=cpu["ate_rmse"], cost_card=card["cost"],
+                cost_cpu=cpu["cost"], seconds_card=card["seconds"], seconds_cpu=cpu["seconds"])
+
+
+def vo_eval_phase(device):
+    """Learned VO from pixels through the port's vo-eval code
+    (``cli.vo_eval_setup``, then ``evaluate_learned_vo``) at the official
+    recipe, trial 0; launches counted from 0 just before the trial and
+    read just after; the trial's seconds split into the front end (its
+    whole-sequence and window calls), the bootstrap solves (the guess
+    network and its eval solve) and the rest (the accumulator, with the
+    sequence's generation and rendering); peak memory; the chosen
+    bootstrap and every bootstrap's cost; beside the JAX log's trial 0.
+    Then the accumulator on fixed clean inputs, card against CPU."""
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train.vo_eval import evaluate_learned_vo
+
+    args = cli._build_parser().parse_args(VO_EVAL_ARGS)
+    config, kwargs = cli.vo_eval_setup(args, device)
+    totals = {"front_end": 0.0, "bootstrap_solves": 0.0}
+    kwargs["guess_fn"] = _timed(kwargs["guess_fn"], totals, "bootstrap_solves")
+    for name in ("frontend_fn", "detections_fn"):
+        kwargs[name] = _timed(kwargs[name], totals, "front_end")
+    debug = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ate = evaluate_learned_vo(generator=torch.Generator(device).manual_seed(100), config=config, debug_out=debug,
+                              **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    ate = {k: float(v) for k, v in ate.items()}
+    for counter in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
+        if not launches.get(counter, 0) > 0:
+            raise AssertionError(f"vo_eval: {counter} was never launched on the path ({launches})")
+    if not all(math.isfinite(v) for v in ate.values()):
+        raise AssertionError(f"vo_eval: ATE not finite {ate}")
+    with open(VO_EVAL_REFERENCE_LOG) as f:
+        jax_trial0 = next(json.loads(line) for line in f if line.startswith('{"trial": 0'))
+    return dict(
+        recipe=" ".join(VO_EVAL_ARGS[3:]), ate=ate, jax_trial0=jax_trial0, seconds_trial=seconds,
+        seconds_split=dict(front_end=totals["front_end"], bootstrap_solves=totals["bootstrap_solves"],
+                           accumulator_and_rest=seconds - totals["front_end"] - totals["bootstrap_solves"]),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+        chosen_bootstrap=debug["chosen_bootstrap"], bootstrap_costs=debug["bootstrap_costs"],
+        clean_accumulator=vo_clean_accumulator(device),
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1683,9 +1879,11 @@ def main():
         ("k1_bench_f32", lambda: k1_phase(BENCH_BATCH, torch.float32, device)),
         ("k1_bench_bf16", lambda: k1_phase(BENCH_BATCH, torch.bfloat16, device)),
         ("k1_val_f32", lambda: k1_phase(VAL_BATCH, torch.float32, device)),
+        ("k1_vo_f32", lambda: k1_phase(VO_BATCH, torch.float32, device)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
         ("k2_val", lambda: k2_phase(VAL_BATCH, device)),
+        ("k2_vo", lambda: k2_phase(VO_BATCH, device)),
         ("k3", lambda: k3_phase(device)),
         ("k4_bench", lambda: k4_phase(BENCH_BATCH, device)),
         ("k4_serve", lambda: k4_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
@@ -1729,6 +1927,7 @@ def main():
         ("eval_lbfgs", lambda: eval_lbfgs_phase(device)),
         ("frontend_train_check", lambda: frontend_train_check_phase(device)),
         ("frontend_train", lambda: frontend_train_phase(device)),
+        ("vo_eval", lambda: vo_eval_phase(device)),
     ):
         t0 = time.perf_counter()
         paths[label] = fn()
@@ -1740,7 +1939,7 @@ def main():
     # learned-match window requests (without their comparison), K4 on the
     # fused-objective entry points, K1' on the tuning sweep; beside it, its
     # count on every path that launched it (K2 on the L-BFGS eval, K3 in
-    # the front end's validation)
+    # the front end's validation, K1-K3 on the vo-eval trial)
     kernels = []
     for name, label, path, counter, source, replaces in (
         ("K1 bfgs_update", "k1_serve_f32", "frontend_serve", "bfgs_update", "davo_tpu_torch/csrc/bfgs_update.cu",

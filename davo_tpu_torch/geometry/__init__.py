@@ -6,6 +6,7 @@ from .so3 import (
     quaternion_from_matrix,
     rotate_vector_axis_angle,
     skew_matrix,
+    so3_parameter_jacobian,
     so3_rotation_matrix,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "quaternion_from_matrix",
     "rotate_vector_axis_angle",
     "skew_matrix",
+    "so3_parameter_jacobian",
     "so3_rotation_matrix",
 ]

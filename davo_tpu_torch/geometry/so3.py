@@ -7,19 +7,22 @@ Rodrigues' formula for an unnormalised axis ``w`` with ``s = |w|^2``:
 with the squared-angle ratios of :mod:`davo_tpu_torch.utils.stable_trig`,
 so values and derivatives are finite at the identity.  The matrix to
 axis-angle conversion serves the synthetic scene generator; the rotation
-matrix serves the trajectory metrics (:mod:`davo_tpu_torch.train.evaluation`).
+matrix serves the trajectory metrics (:mod:`davo_tpu_torch.train.evaluation`);
+the parameter Jacobian serves the Schur bundle adjustment and PnP
+(:mod:`davo_tpu_torch.parallel.schur`, :mod:`davo_tpu_torch.train.vo_eval`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from davo_tpu_torch.utils.stable_trig import cos_from_sq, one_minus_cos_sq, sinc_sq
+from davo_tpu_torch.utils.stable_trig import cos_from_sq, cos_sin_sq, one_minus_cos_sq, sin_cubed_sq, sinc_sq
 
 __all__ = [
     "skew_matrix",
     "so3_rotation_matrix",
     "rotate_vector_axis_angle",
+    "so3_parameter_jacobian",
     "axis_angle_from_quaternion",
     "quaternion_from_matrix",
     "axis_angle_from_matrix",
@@ -60,6 +63,35 @@ def rotate_vector_axis_angle(vector: torch.Tensor, axis_angle: torch.Tensor) -> 
     vector, axis_angle = torch.broadcast_tensors(vector, axis_angle)
     cross = torch.linalg.cross(axis_angle, vector, dim=-1)
     return vector * cos_theta + f4 * dot * axis_angle + f1 * cross
+
+
+def so3_parameter_jacobian(vector: torch.Tensor, axis_angle: torch.Tensor) -> torch.Tensor:
+    """Analytic Jacobian ``d(R(w) v)/dw``, shape ``(..., 3, 3)``:
+    ``J[..., i, j] = d (R v)_i / d w_j``.  With ``f2 = cos_sin_sq`` and
+    ``f3 = sin_cubed_sq`` (``dx/dw_j = w_j / x``)
+
+        J_ij = -v_i w_j f1 + (w.v) f3 w_i w_j + f4 (w_i v_j + (w.v) delta_ij)
+             + f2 w_j (w x v)_i + f1 eps_ijk v_k
+
+    Every ratio switches to its Taylor series at small angles with the
+    double ``where`` of :mod:`davo_tpu_torch.utils.stable_trig`, so the
+    Jacobian is finite at ``w = 0`` (where it is ``-[v]_x``)."""
+    s = torch.sum(torch.square(axis_angle), dim=-1, keepdim=True)
+    f1 = sinc_sq(s)[..., None]
+    f4 = one_minus_cos_sq(s)[..., None]
+    f2 = cos_sin_sq(s)[..., None]
+    f3 = sin_cubed_sq(s)[..., None]
+    vector, axis_angle = torch.broadcast_tensors(vector, axis_angle)
+    dot = torch.sum(vector * axis_angle, dim=-1, keepdim=True)[..., None]
+    cross = torch.linalg.cross(axis_angle, vector, dim=-1)
+    w_i, w_j = axis_angle[..., :, None], axis_angle[..., None, :]
+    v_i, v_j = vector[..., :, None], vector[..., None, :]
+    eye = torch.eye(3, dtype=vector.dtype, device=vector.device)
+    term_cos = -v_i * w_j * f1
+    term_dot = dot * f3 * w_i * w_j + f4 * (w_i * v_j + dot * eye)
+    # eps_ijk v_k is the negated skew of v
+    term_cross = f2 * w_j * cross[..., :, None] - f1 * skew_matrix(vector)
+    return term_cos + term_dot + term_cross
 
 
 def axis_angle_from_quaternion(quaternion: torch.Tensor) -> torch.Tensor:

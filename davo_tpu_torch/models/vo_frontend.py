@@ -25,7 +25,9 @@ everything after the matcher is as in eval.  The eval forward runs
 without a graph.
 
 Sequential tracking (``track_sequence``, ``_track_sequence_impl``) and
-``frontend_detect`` belong to the incremental-VO slice of the port.
+``frontend_detect`` are not ported yet (``ROADMAP.md`` Queue 1 item 10):
+no command of either package reaches them; ``vo-eval`` takes the
+forward's ``points`` and ``sigmoid(scores)`` as its detections.
 """
 
 from __future__ import annotations
@@ -173,7 +175,7 @@ class VOFrontend(nn.Module):
             anchor-to-view matcher call instead of the generator's draw.
         :return: :class:`FrontendOutput`."""
         if track_sequence:
-            raise NotImplementedError("sequential tracking is ported with the incremental-VO slice")
+            raise NotImplementedError("sequential tracking is not ported yet (ROADMAP.md Queue 1 item 10)")
         if training:
             with torch.enable_grad():
                 return self._forward(images, True, generator, dropout_mask)

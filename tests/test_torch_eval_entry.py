@@ -42,6 +42,7 @@ from davo_tpu.models import CalibrationNetwork as JNetwork
 from davo_tpu.solve import BFGSConfig as JBFGSConfig
 from davo_tpu.train import calibration as jc
 from davo_tpu.train import save_checkpoint as j_save_checkpoint
+import davo_tpu_torch.train as t_train
 from davo_tpu_torch import cli
 from davo_tpu_torch.models import CalibrationNetwork, flax_to_state_dict, load_numpy_checkpoint
 from davo_tpu_torch.solve import BFGSConfig, LBFGSConfig
@@ -185,6 +186,24 @@ def test_cli_eval_on_the_cpu(tiny, tmp_path, monkeypatch, capsys):
         "ate_rmse_mean", "ate_rmse_median", "f_error_mean", "centre_error_mean",
     }
     assert all(np.isfinite(v) for v in printed.values())
+
+
+def test_cli_eval_ate_batches(monkeypatch):
+    """``--ate-batches`` sets how many batches the trajectory accuracy
+    solves (four by default, as the JAX CLI)."""
+    _tiny_preset(monkeypatch)
+    calls = []
+    original = t_train.evaluate_calibration_ate
+
+    def spy(network, config, seed, batches=4):
+        calls.append(batches)
+        return original(network, config, seed, batches=batches)
+
+    monkeypatch.setattr(t_train, "evaluate_calibration_ate", spy)
+    for extra in ([], ["--ate-batches", "1"]):
+        result = cli.run(TINY_ARGS + extra)
+        assert np.isfinite(result["ate_rmse_mean"])
+    assert calls == [4, 1]
 
 
 @pytest.mark.parametrize(

@@ -1,7 +1,10 @@
 """Kernels K1, K1′, K2, K3 and K4 on the card, against their plain PyTorch
-versions; one training step of the calibration network and one of the
-front end on the card against the CPU's; and the L-BFGS eval solve on the
-card (through K2) against the CPU's.
+versions (also at vo-eval's shapes: K1 and K2 at a bootstrap solve's 8
+elements, K3 at 15 and 3 problems); one training step of the calibration
+network and one of the front end on the card against the CPU's; the
+L-BFGS eval solve on the card (through K2) against the CPU's; and the
+incremental-VO accumulator on clean inputs, the card in float32 against
+the CPU in float64.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -67,6 +70,22 @@ def test_bfgs_update_kernel_matches_plain(cuda_device, h_dtype, p):
         assert build.launch_counts["bfgs_update"] == before + 1
         p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
         assert _normwise(k_h, p_h) <= (1e-2 if h_dtype == torch.bfloat16 else 1e-4)
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_bfgs_update_kernel_at_the_bootstrap_batch(cuda_device):
+    """vo-eval's bootstrap solve: one window x 8 restarts, B = 8 (one
+    partial tile of the register route)."""
+    h_t, s, y, grad, updating = _k1_inputs(8, 45)
+    on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
+    for first, second in FLAGS:
+        before = build.launch_counts["bfgs_update"]
+        k_h, k_d = k1.fused_bfgs_update_direction(*on_card, first, second)
+        torch.cuda.synchronize()
+        assert build.launch_counts["bfgs_update"] == before + 1
+        p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= 1e-4
         assert _normwise(k_d, p_d) <= 1e-4
 
 
@@ -150,7 +169,8 @@ def _objective_inputs(b, m=4, n=8):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1000, 1003, 5])  # whole blocks of 8 elements; a ragged last one; one block
+# whole blocks of 8 elements; a ragged last one; one block; vo-eval's bootstrap solve (8)
+@pytest.mark.parametrize("b", [1000, 1003, 5, 8])
 def test_calibration_value_and_grad_kernel_matches_plain(cuda_device, b):
     params, u, v, vis, _ = _objective_inputs(b)
     on_cpu = [params, u, v, vis]
@@ -222,6 +242,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         (3072, 144, 144, 64, 2),  # the matcher's shape
         (64, 37, 211, 100, 8),  # five key tiles, D = 100, C = 8
         (4, 30, 50, 37, 2),  # D % 4 != 0: rows staged by 4-byte copies
+        (15, 144, 144, 64, 2),  # vo-eval: the whole sequence's 15 anchor-to-view problems
+        (3, 144, 144, 64, 2),  # vo-eval: a bootstrap window's 3
     ],
 )
 def test_match_attention_kernel_matches_plain(cuda_device, b, q_len, kv_len, d, c):
@@ -376,3 +398,17 @@ def test_frontend_train_step_on_the_card_matches_the_cpu(cuda_device):
         squares[kind] = (err + float(torch.sum(diff * diff)), ref + float(torch.sum(value.double() ** 2)))
     for kind, (err, ref) in squares.items():
         assert err <= (1e-8) ** 2 * ref, kind
+
+
+@pytest.mark.gpu
+def test_incremental_vo_accumulator_on_the_card_matches_the_cpu(cuda_device):
+    """solve_incremental_vo_detections on chip_smoke.py's clean inputs (10
+    frames of 8 points among junk detections, a truth bootstrap, ba_irls 1,
+    pnp_ransac 4, chain_passes 2, reject_outliers): the card in float32
+    against the CPU in float64, rotations to 1e-4 and translations to 1e-3,
+    the card's ATE below 5e-3, no kernel launched."""
+    import chip_smoke
+
+    result = chip_smoke.vo_clean_accumulator(cuda_device)
+    assert result["rotation_max_abs_err"] <= 1e-4 and result["translation_max_abs_err"] <= 1e-3
+    assert result["ate_rmse_card"] < 5e-3

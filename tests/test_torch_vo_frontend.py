@@ -105,7 +105,7 @@ def test_eval_metrics_match_jax(windows_and_images, jax_variables):
 
 def test_track_sequence_is_refused():
     frontend, _ = load_frontend(device="cpu")
-    with pytest.raises(NotImplementedError, match="incremental-VO"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         frontend(torch.zeros(1, 2, 96, 96, 3), track_sequence=True)
 
 
