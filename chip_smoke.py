@@ -9,8 +9,9 @@ Phases, each printed as one JSON line with its seconds:
             and spill lines);
 3. k1, k2   each kernel against its plain PyTorch version on the card, at the
             serve shape (B = 8192, also 32 restarts of 256 scenes), the bench
-            shape (B = 16384), the trainer's validation batch (B = 64) and
-            vo-eval's bootstrap solve (B = 8): error
+            shape (B = 16384), the trainer's validation batch (B = 64),
+            vo-eval's bootstrap solve (B = 8), its stacked windows (B = 56) and
+            K1 at correct_scale_drift's P = 15, B = 1: error
             against the stated tolerance, time by CUDA events (``ms``: the
             wrapper's launches one by one from the host, as the solver makes
             them; ``graph_ms``: the same launches replayed from a CUDA graph,
@@ -19,7 +20,8 @@ Phases, each printed as one JSON line with its seconds:
             timed kernel's registers and spill bytes from ptxas;
    k3       the attention kernel against its plain version at the matcher's
             shape (3,072 problems of 144 x 144, D = 64, C = 2), at vo-eval's
-            (15 and 3 problems) and on masked, ragged inputs; its time
+            (15 and 3 problems; 21, the stacked windows) and on masked,
+            ragged inputs; its time
             beside the plain version's and beside torch's
             scaled_dot_product_attention as the matcher would call
             it (timed only as a yardstick); its bound on the tensor cores
@@ -113,7 +115,26 @@ Phases, each printed as one JSON line with its seconds:
             (each > 0); then the accumulator on fixed clean inputs (10
             frames, junk detections, every robustness option), the card in
             float32 against the CPU in float64;
-17. the kernels line (with each kernel's launches on every path that ran
+17. vo_windows  the JAX CLI's vo-eval default (windows pipeline, oracle
+            matches, global stitch, refinement) at v6_verified's width, trial 0
+            (a generator seeded 100): the 7 windows solved in one stacked call
+            (K1 and K2 at 56 elements), the refined ATE, K1/K2 launches (each
+            > 0); from the same window solves, the stitched ATE under chain,
+            global and robust, multistart 4 with the float64 polish (and that
+            polish on the card against the CPU's, float64, to 1e-9),
+            correct_scale_drift on the global stitch (ATE before and after;
+            K1 at P = 15, B = 1, launched); the oracle-guess windows stitched
+            and refined in float32 (ATE within 1e-4); learned matches
+            (frontend_v4, the official gates: K3 launched, ATE finite); the
+            seconds split, peak memory, beside artifacts/eval_v3_vo.log,
+            eval_v3_vo_raw.log, eval_stitch_compare.log and
+            eval_learned_v3.log;
+18. eval_seq  python -m davo_tpu_torch.cli eval-seq on tests/fixtures:
+            compare mode (TUM estimate against ground truth), oracle VO and
+            learned VO (v6_verified, 8 points, windows of 4, 1 restart, the
+            front end with eval-seq's gates; K1-K3 launched) along the KITTI
+            file;
+19. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -123,7 +144,9 @@ card it exits non-zero before doing anything.  Each path's launch counts
 are set to 0 just before it and read just after: K1, K2 and K3 from the
 learned-match window path, K4 from the fused-objective entry points, K1'
 from the tuning sweep, K2 from the L-BFGS eval, K3 from the front end's
-validation (its train steps read 0), K1-K3 from the vo-eval trial.
+validation (its train steps read 0), K1-K3 from the vo-eval trial,
+K1 and K2 from the windows trial, K1 from correct_scale_drift, K1-K3
+from the windows trial on learned matches and from eval-seq's learned VO.
 """
 
 import itertools
@@ -236,11 +259,13 @@ FRONTEND_REFERENCE_LOG = os.path.join(REPO, "artifacts", "frontend_v4_metrics.js
 # (K3 at 15 problems on the whole sequence, 3 on a window, each twice with
 # the cycle gate), 16 frames of 8 points, 3 bootstraps, ba_irls 2, no
 # refinement; trial 0 only (JAX's key 100: a generator seeded 100)
+V6_CHECKPOINT = os.path.join(REPO, "artifacts", "vo_windows_transformer_v6_verified.pkl")
+FRONTEND_NPZ = os.path.join(REPO, "davo_tpu_torch", "weights", "frontend_v4.npz")
+V6_WIDTH = ["--hidden-size", "384", "--transformer-layers", "8", "--transformer-heads", "8"]
 VO_EVAL_ARGS = [
-    "vo-eval", "--checkpoint", os.path.join(REPO, "artifacts", "vo_windows_transformer_v6_verified.pkl"),
-    "--hidden-size", "384", "--transformer-layers", "8", "--transformer-heads", "8",
+    "vo-eval", "--checkpoint", V6_CHECKPOINT, *V6_WIDTH,
     "--pipeline", "incremental", "--association", "geometric", "--no-refine", "--matches", "learned",
-    "--frontend-checkpoint", os.path.join(REPO, "davo_tpu_torch", "weights", "frontend_v4.npz"),
+    "--frontend-checkpoint", FRONTEND_NPZ,
     "--nms-radius", "0.1", "--snap-radius", "0.12", "--cycle-threshold", "0.15", "--quality-bonus", "10.0",
     "--score-threshold", "0.2", "--centroid-refine", "2", "--ba-irls", "2", "--trials", "1",
 ]
@@ -253,8 +278,46 @@ VO_K3_PROBLEMS = (15, 3)  # the whole sequence's 15 anchor-to-view problems; a w
 # frames, every robustness option; the card in float32 against the CPU in
 # float64 (CPU float32 against float64 read 3e-7 and 6e-5 on two seeds)
 VO_CLEAN_ROTATION_TOL, VO_CLEAN_TRANSLATION_TOL, VO_CLEAN_ATE_TOL = 1e-4, 1e-3, 5e-3
+# windowed VO, the JAX CLI's vo-eval default (windows, oracle matches,
+# global stitch, refinement) at v6_verified's width (v3_1200, the logs'
+# checkpoint, has its architecture but does not fit the copy's cap beside
+# the earlier phases' pickles), trial 0: the 7 windows of 16 frames x 8
+# restarts solved in one stacked call (K1 and K2 at B = 56, P = 45); then,
+# from the same window solves, chain, global and robust stitching,
+# multistart 4 with the float64 polish (the card's against the CPU's), and
+# correct_scale_drift (K1 at P = 15, B = 1); the oracle-guess recovery
+# check; learned matches (frontend_v4, the official gates: K3 at 21
+# problems)
+VO_WINDOWS_ARGS = ["vo-eval", "--checkpoint", V6_CHECKPOINT, *V6_WIDTH, "--trials", "1"]
+VO_WINDOWS_LEARNED_ARGS = VO_WINDOWS_ARGS + [
+    "--matches", "learned", "--frontend-checkpoint", FRONTEND_NPZ, "--nms-radius", "0.1", "--snap-radius", "0.12",
+    "--cycle-threshold", "0.15", "--quality-bonus", "10.0", "--score-threshold", "0.2", "--centroid-refine", "2",
+]
+VO_WINDOWS_LOGS = {name: os.path.join(REPO, "artifacts", f"{name}.log")
+                   for name in ("eval_v3_vo", "eval_v3_vo_raw", "eval_stitch_compare", "eval_learned_v3")}
+VO_WINDOWS = 7  # windows of 4 at stride 2 over 16 frames
+VO_WINDOWS_BATCH = VO_WINDOWS * 8  # the stacked window solve's batch: K1 and K2
+VO_DRIFT_P, VO_DRIFT_BATCH = 15, 1  # correct_scale_drift's BFGS over 16 frames' segments
+VO_MULTISTART = 4
+VO_RECOVERY_ATE = 1e-4  # tests/train/test_vo_eval.py's bound on oracle-guess windows
+VO_POLISH_TOL = 1e-9  # the float64 polish, card against CPU, normwise on the poses
+# eval-seq on the fixtures: compare mode (TUM), oracle VO and learned VO
+# (v6_verified at 8 points, windows of 4, the front end with eval-seq's
+# gates) along the KITTI file; the learned case's 8 restarts cut to 1 (at
+# 8 its 100 line searches run into their 50-probe cap: 101.6 s of host
+# work, where a host 1.25 times slower would put the run past its limit)
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+EVAL_SEQ_CASES = {
+    "compare": ["eval-seq", "--gt", os.path.join(FIXTURES, "tum_mini_groundtruth.txt"), "--est",
+                os.path.join(FIXTURES, "tum_mini_estimated.txt")],
+    "oracle": ["eval-seq", "--gt", os.path.join(FIXTURES, "kitti_mini_00.txt"), "--format", "kitti"],
+    "learned": ["eval-seq", "--gt", os.path.join(FIXTURES, "kitti_mini_00.txt"), "--format", "kitti", "--checkpoint",
+                V6_CHECKPOINT, *V6_WIDTH, "--points", "8", "--window", "4", "--restarts", "1", "--frontend-checkpoint",
+                FRONTEND_NPZ],
+}
 # the paths whose launch counts the kernels line reports
-LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval")
+LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval",
+                "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned")
 
 
 def emit(phase, **fields):
@@ -377,7 +440,7 @@ def k1_symbol(h_dtype, variant_symbol=None):
     return f"bfgs_update_rows_kernelI{type_code}Li{2 if h_dtype == torch.bfloat16 else 1}E"
 
 
-def k1_phase(batch, h_dtype, device, variant=None):
+def k1_phase(batch, h_dtype, device, variant=None, p=3 + 3 * N + 6 * (M - 1)):
     """K1, or with ``variant = (kernel, plain, symbol)`` one of the K1'
     orderings, against its plain version and timed.  K1 is checked on a
     symmetric carry (it takes y'H = (Hy)' by symmetry); K1' on that carry
@@ -387,7 +450,6 @@ def k1_phase(batch, h_dtype, device, variant=None):
     from davo_tpu_torch.ops.bfgs_update import fused_bfgs_update_direction, reference_update_direction
 
     kernel, plain_version, symbol = variant or (fused_bfgs_update_direction, reference_update_direction, None)
-    p = 3 + 3 * N + 6 * (M - 1)
     h_tol = 1e-2 if h_dtype == torch.bfloat16 else 1e-4  # bf16: one rounding of H+
     checks, worst = {}, 0.0
     for asymmetry in ((0.0, 0.05) if variant else (0.0,)):
@@ -420,7 +482,7 @@ def k1_phase(batch, h_dtype, device, variant=None):
     operations = batch * 10 * p * p
     bound_ms, bound_by = bound(bytes_moved, operations)
     return dict(
-        batch=batch, h_dtype=str(h_dtype).replace("torch.", ""), checks=checks, max_abs_err=worst,
+        batch=batch, p=p, h_dtype=str(h_dtype).replace("torch.", ""), checks=checks, max_abs_err=worst,
         ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / ms, GBps=bytes_moved / ms / 1e6, library_ms=None,
         ptxas=ptxas_resources(build.build_log.get("ptxas", []), k1_symbol(h_dtype, symbol)),
@@ -618,8 +680,10 @@ def k3_phase(device):
         # random key masks, problem 0 fully masked, Q and K not multiples of 64
         ("masked_ragged", 512, 100, 150, K3_DEPTH, K3_WIDTH, True),
         ("masked_wide", 64, 37, 211, 100, 8, True),
-        # vo-eval's calls: the whole sequence (16 frames) and a window (4)
-        *((f"vo_{b}", b, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, False) for b in VO_K3_PROBLEMS),
+        # vo-eval's calls: the whole sequence (16 frames), a window (4), the
+        # windows pipeline's stacked windows
+        *((f"vo_{b}", b, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, False)
+          for b in VO_K3_PROBLEMS + ((M - 1) * VO_WINDOWS,)),
     )
     for label, b, q_len, kv_len, d, c, masked in cases:
         q, k, v, mask = k3_inputs(b, q_len, kv_len, d, c, device, seed=b + q_len, masked=masked)
@@ -1846,6 +1910,205 @@ def vo_eval_phase(device):
     )
 
 
+def _ate_rmse(estimates, poses):
+    from davo_tpu_torch.train.evaluation import absolute_trajectory_error, camera_centers_from_poses
+
+    est, poses = estimates.double(), poses.double()
+    return float(absolute_trajectory_error(camera_centers_from_poses(est[:, :3], est[:, 3:]),
+                                           camera_centers_from_poses(poses[:, :3], poses[:, 3:]))["rmse"])
+
+
+def _jax_trials(log, section=None):
+    """The trial lines' ATE rmse of a JAX log (of the block headed
+    ``=== <section> ===`` where the log holds several)."""
+    trials, inside = [], section is None
+    with open(log) as f:
+        for line in f:
+            if line.startswith("==="):
+                inside = section is not None and line.strip("= \n") == section
+            elif inside and line.startswith('{"trial"'):
+                trials.append(json.loads(line)["rmse"])
+    return trials
+
+
+def vo_windows_recovery(device, frames=16, seed=0):
+    """The windows pipeline on oracle guesses (tests/train/test_vo_eval.py's
+    construction): each window's truth calibration at the gauge scale
+    1 + 0.4 (i + 1) of window i, solved in one stacked call, stitched
+    (chain and global) and refined on the card in float32; the refined ATE
+    within VO_RECOVERY_ATE."""
+    from davo_tpu_torch.camera import CalibrationParameters, pack_calibration_parameters
+    from davo_tpu_torch.geometry import so3_rotation_matrix
+    from davo_tpu_torch.train.vo_eval import (
+        TrajectoryConfig,
+        _to_window_frame,
+        _window_starts,
+        generate_trajectory,
+        refine_trajectory_global,
+        solve_windowed_vo_learned,
+    )
+
+    cfg = TrajectoryConfig(num_frames=frames, num_points=N, window=M)
+    poses, points, pixels, vis = generate_trajectory(torch.Generator(device).manual_seed(seed), cfg, device=device)
+    f = cfg.focal_length
+    vectors = []
+    for i, s in enumerate(_window_starts(frames, M, M - 2)):
+        rel = _to_window_frame(poses[s: s + M], poses[s])
+        scale = 1.0 + 0.4 * (i + 1)
+        pts = points @ so3_rotation_matrix(poses[s, 0:3]).T + poses[s, 3:6]
+        vectors.append(pack_calibration_parameters(CalibrationParameters(
+            intrinsics=torch.tensor([f - 1.0 if f >= 1.0 else math.log(f), 0.0, 0.0], device=device).reshape(1, 1, 3),
+            world_points=(scale * pts).reshape(1, -1, 3),
+            camera_translations=(scale * rel[1:, 3:6]).reshape(M - 1, 1, 3),
+            camera_rotations=rel[1:, 0:3].reshape(M - 1, 1, 3),
+        )).reshape(-1))
+    vectors = torch.stack(vectors)
+
+    def guess_fn(pixels_windows, visibility_windows):
+        if pixels_windows.shape[0] != vectors.shape[0]:
+            raise AssertionError(f"{pixels_windows.shape[0]} windows stacked, {vectors.shape[0]} expected")
+        return vectors
+
+    intrinsics = torch.tensor([f, 0.0, 0.0], device=device)
+    out = {}
+    for stitch in ("chain", "global"):
+        stitched = solve_windowed_vo_learned(guess_fn, pixels, vis, cfg, stitch=stitch)
+        refined = refine_trajectory_global(stitched, intrinsics, pixels, vis)
+        out[stitch] = dict(stitched_ate=_ate_rmse(stitched, poses), refined_ate=_ate_rmse(refined, poses))
+        if not out[stitch]["refined_ate"] <= VO_RECOVERY_ATE:
+            raise AssertionError(f"vo_windows recovery ({stitch}): refined ATE {out[stitch]} > {VO_RECOVERY_ATE}")
+    return dict(frames=frames, windows=vectors.shape[0], gauge_scales="1 + 0.4 (i + 1)", bound=VO_RECOVERY_ATE,
+                dtype="float32", **out)
+
+
+def vo_windows_phase(device):
+    """The JAX CLI's vo-eval default at v6_verified's width, trial 0,
+    through the port's code (cli.vo_eval_setup, then evaluate_learned_vo),
+    launches counted from 0 just before the trial; then from the same
+    window solves (the trial's debug_out): chain, global and robust
+    stitching, multistart with the float64 polish (the card's polish
+    against the CPU's, float64), correct_scale_drift (launches counted
+    from 0 just before it: K1 at P = 15); the oracle-guess recovery check;
+    learned matches (trial 0, launches counted); the seconds split and
+    peak memory; beside the JAX logs."""
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train.vo_eval import (
+        correct_scale_drift,
+        evaluate_learned_vo,
+        refine_trajectory_global,
+        refine_trajectory_host_f64,
+        refine_trajectory_multistart,
+        stitch_windows,
+    )
+
+    def timed(name, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    args = cli._build_parser().parse_args(VO_WINDOWS_ARGS)
+    config, kwargs = cli.vo_eval_setup(args, device)
+    totals = {"window_solves": 0.0}
+    kwargs["guess_fn"] = _timed(kwargs["guess_fn"], totals, "window_solves")
+    seconds, debug = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    ate = timed("trial", evaluate_learned_vo, generator=torch.Generator(device).manual_seed(100), config=config,
+                debug_out=debug, **kwargs)
+    launches = dict(build.launch_counts)
+    ate = {k: float(v) for k, v in ate.items()}
+    for counter in ("bfgs_update", "calibration_value_and_grad"):
+        if not launches.get(counter, 0) > 0:
+            raise AssertionError(f"vo_windows: {counter} was never launched on the path ({launches})")
+    if not all(math.isfinite(v) for v in ate.values()):
+        raise AssertionError(f"vo_windows: ATE not finite {ate}")
+    seconds["window_solves"] = totals["window_solves"]
+    starts, window_poses = debug["window_starts"], debug["window_poses"]
+    pixels, vis, poses, intrinsics = debug["pixels"], debug["visibility"], debug["true_poses"], debug["intrinsics"]
+    stitched = {mode: timed(f"stitch_{mode}", stitch_windows, starts, window_poses, pixels.shape[0], mode)
+                for mode in ("chain", "global", "robust")}
+    refined = timed("refinement", refine_trajectory_global, stitched["global"], intrinsics, pixels, vis)
+    multistart = timed("multistart", refine_trajectory_multistart, stitched["global"], intrinsics, pixels, vis,
+                       torch.Generator(device).manual_seed(107), num_hypotheses=VO_MULTISTART)
+    polished = timed("polish", refine_trajectory_host_f64, multistart, intrinsics, pixels, vis)
+    # the float64 polish on the card against the same polish on the CPU
+    card64 = refine_trajectory_host_f64(multistart.double(), intrinsics, pixels, vis).cpu()
+    cpu64 = refine_trajectory_host_f64(*(x.cpu().double() if x.is_floating_point() else x.cpu()
+                                         for x in (multistart, intrinsics, pixels, vis)))
+    polish_check = check("vo_windows float64 polish, card against CPU", card64, cpu64, VO_POLISH_TOL)
+    build.reset_launch_counts()
+    drift = timed("scale_drift", correct_scale_drift, stitched["global"], intrinsics, pixels, vis)
+    drift_launches = dict(build.launch_counts)
+    if not drift_launches.get("bfgs_update", 0) > 0:
+        raise AssertionError(f"vo_windows: K1 never launched at P = {VO_DRIFT_P} ({drift_launches})")
+    recovery = timed("recovery_check", vo_windows_recovery, device)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    learned_args = cli._build_parser().parse_args(VO_WINDOWS_LEARNED_ARGS)
+    l_config, l_kwargs = cli.vo_eval_setup(learned_args, device)
+    build.reset_launch_counts()
+    l_ate = timed("learned_trial", evaluate_learned_vo, generator=torch.Generator(device).manual_seed(100),
+                  config=l_config, **l_kwargs)
+    l_launches = dict(build.launch_counts)
+    l_ate = {k: float(v) for k, v in l_ate.items()}
+    for counter in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
+        if not l_launches.get(counter, 0) > 0:
+            raise AssertionError(f"vo_windows learned: {counter} was never launched on the path ({l_launches})")
+    if not all(math.isfinite(v) for v in l_ate.values()):
+        raise AssertionError(f"vo_windows learned: ATE not finite {l_ate}")
+    logs = VO_WINDOWS_LOGS
+    return dict(
+        recipe=" ".join(VO_WINDOWS_ARGS[3:]), trial=0, windows=len(starts), stacked_batch=VO_WINDOWS_BATCH,
+        ate=ate, launches=launches,
+        stitched_ate={mode: _ate_rmse(est, poses) for mode, est in stitched.items()},
+        refined_ate=_ate_rmse(refined, poses), multistart_ate=_ate_rmse(multistart, poses),
+        multistart_polished_ate=_ate_rmse(polished, poses), polish_card_vs_cpu=polish_check,
+        scale_drift=dict(ate_before=_ate_rmse(stitched["global"], poses), ate_after=_ate_rmse(drift, poses),
+                         p=VO_DRIFT_P, batch=VO_DRIFT_BATCH, launches=drift_launches),
+        recovery=recovery, seconds_split=seconds, peak_memory_gb=peak,
+        learned_matches=dict(recipe=" ".join(VO_WINDOWS_LEARNED_ARGS[len(VO_WINDOWS_ARGS):]), ate=l_ate,
+                             launches=l_launches, readme_ate="~9 (README.md:79, per-window solving + stitching)",
+                             jax_eval_learned_v3=_jax_trials(logs["eval_learned_v3"], "refined, conf 0.3, nms 0.1")),
+        jax_eval_v3_vo=_jax_trials(logs["eval_v3_vo"]), jax_eval_v3_vo_raw=_jax_trials(logs["eval_v3_vo_raw"]),
+        jax_stitch_compare={mode: _jax_trials(logs["eval_stitch_compare"], f"--stitch {mode}")
+                            for mode in ("chain", "global")},
+    )
+
+
+def eval_seq_phase(device):
+    """python -m davo_tpu_torch.cli eval-seq on the fixtures: compare mode,
+    oracle VO and learned VO along the KITTI file (launches counted from 0
+    just before it: K1, K2, K3; the seconds of its window solves apart);
+    every figure finite."""
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.ops import build
+
+    out, guess_fn = {}, cli._guess_fn
+    for name, argv in EVAL_SEQ_CASES.items():
+        totals = {"window_solves": 0.0}
+        cli._guess_fn = lambda net: _timed(guess_fn(net), totals, "window_solves")
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            result = cli.run(argv)
+        finally:
+            cli._guess_fn = guess_fn
+        torch.cuda.synchronize()
+        out[name] = dict(metrics=result, seconds=time.perf_counter() - t0, launches=dict(build.launch_counts),
+                         seconds_window_solves=totals["window_solves"])
+        if not all(math.isfinite(v) for v in result.values()):
+            raise AssertionError(f"eval_seq {name}: not finite {result}")
+    for counter in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
+        if not out["learned"]["launches"].get(counter, 0) > 0:
+            raise AssertionError(f"eval_seq learned: {counter} was never launched ({out['learned']['launches']})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1880,10 +2143,13 @@ def main():
         ("k1_bench_bf16", lambda: k1_phase(BENCH_BATCH, torch.bfloat16, device)),
         ("k1_val_f32", lambda: k1_phase(VAL_BATCH, torch.float32, device)),
         ("k1_vo_f32", lambda: k1_phase(VO_BATCH, torch.float32, device)),
+        ("k1_vo_windows_f32", lambda: k1_phase(VO_WINDOWS_BATCH, torch.float32, device)),
+        ("k1_vo_drift_f32", lambda: k1_phase(VO_DRIFT_BATCH, torch.float32, device, p=VO_DRIFT_P)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
         ("k2_val", lambda: k2_phase(VAL_BATCH, device)),
         ("k2_vo", lambda: k2_phase(VO_BATCH, device)),
+        ("k2_vo_windows", lambda: k2_phase(VO_WINDOWS_BATCH, device)),
         ("k3", lambda: k3_phase(device)),
         ("k4_bench", lambda: k4_phase(BENCH_BATCH, device)),
         ("k4_serve", lambda: k4_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
@@ -1928,11 +2194,16 @@ def main():
         ("frontend_train_check", lambda: frontend_train_check_phase(device)),
         ("frontend_train", lambda: frontend_train_phase(device)),
         ("vo_eval", lambda: vo_eval_phase(device)),
+        ("vo_windows", lambda: vo_windows_phase(device)),
+        ("eval_seq", lambda: eval_seq_phase(device)),
     ):
         t0 = time.perf_counter()
         paths[label] = fn()
         emit(label, card=smi, **paths[label], seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
+    paths["vo_windows_scale_drift"] = paths["vo_windows"]["scale_drift"]
+    paths["vo_windows_learned"] = paths["vo_windows"]["learned_matches"]
+    paths["eval_seq_learned"] = paths["eval_seq"]["learned"]
 
     # launches: each kernel's count on the path that drives it, counted
     # from 0 just before the path and read just after: K1-K3 on the

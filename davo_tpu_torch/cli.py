@@ -1,5 +1,5 @@
-"""Command-line entry of the port (the ``fit``, ``eval``, ``fit-frontend``
-and ``vo-eval`` subcommands of ``davo_tpu/cli.py``).
+"""Command-line entry of the port (the ``fit``, ``eval``, ``fit-frontend``,
+``vo-eval`` and ``eval-seq`` subcommands of ``davo_tpu/cli.py``).
 
     python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
         --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
@@ -11,9 +11,14 @@ and ``vo-eval`` subcommands of ``davo_tpu/cli.py``).
     python -m davo_tpu_torch.cli fit-frontend --image-size 96 --epochs 600 \\
         --checkpoint-dir <dir> --metrics-file <file.jsonl>
     python -m davo_tpu_torch.cli vo-eval --checkpoint <weights.pkl> --hidden-size 384 \\
+        --transformer-layers 8 --transformer-heads 8 [--stitch global|robust|chain] \\
+        [--multistart H] [--host-polish] [--no-refine] --trials 3
+    python -m davo_tpu_torch.cli vo-eval --checkpoint <weights.pkl> --hidden-size 384 \\
         --transformer-layers 8 --transformer-heads 8 --pipeline incremental \\
         --association geometric --no-refine --matches learned \\
         --frontend-checkpoint davo_tpu_torch/weights/frontend_v4.npz [gates] --trials 4
+    python -m davo_tpu_torch.cli eval-seq --gt <gt.txt> [--est <est.txt>] [--format tum|kitti] \\
+        [--checkpoint <weights.pkl> --points 8 [--frontend-checkpoint <npz>]]
 
 ``fit`` trains the preset (``train/calibration.py::fit``: checkpoints of
 the whole state every 25 epochs and at the end in ``--checkpoint-dir``,
@@ -34,15 +39,24 @@ the visual front end (``train/frontend.py::fit_frontend``), prints a JSON
 line per split and epoch, saves ``{"params", "batch_stats"}`` at step
 ``epochs`` in ``--checkpoint-dir`` with its ``frontend_config.json``
 (which ``models/convert.py::load_frontend`` and the JAX package read),
-and prints ``{"final": ...}`` last.  ``vo-eval`` runs the learned
-incremental VO (``train/vo_eval.py::evaluate_learned_vo``) on ``--trials``
-synthetic sequences, the curriculum preset's eval solver in its
-bootstrap windows and, with ``--matches learned``, the front end of
+and prints ``{"final": ...}`` last.  ``vo-eval`` runs the learned VO
+(``train/vo_eval.py::evaluate_learned_vo``) on ``--trials`` synthetic
+sequences: by default the windows pipeline (every window solved by the
+curriculum preset's eval solver, all windows in one stacked call, then
+``--stitch`` and the refinement: ``--multistart`` hypotheses, else one
+global refinement unless ``--no-refine``, and with ``--host-polish`` the
+float64 polish), or ``--pipeline incremental`` (a learned bootstrap and
+the accumulator); with ``--matches learned`` the front end of
 ``--frontend-checkpoint`` (an ``.npz`` with its ``.json``, or a
-``fit-frontend`` directory; see ``models/convert.py::load_frontend``);
-it prints a JSON line a trial and ``{"mean_ate_rmse": ...}`` last, as
-the JAX CLI.  Trial ``t`` draws from a generator seeded ``100 + t``
-(the JAX CLI's key).  Every subcommand runs on the card;
+``fit-frontend`` directory; see ``models/convert.py::load_frontend``)
+supplies the observations.  It prints a JSON line a trial and
+``{"mean_ate_rmse": ...}`` last, as the JAX CLI.  Trial ``t`` draws from
+a generator seeded ``100 + t`` (the JAX CLI's key).  ``eval-seq`` compares
+an ``--est`` trajectory file with ``--gt`` (ATE and RPE, TUM timestamps
+associated within ``--max-dt``), or runs VO along ``--gt`` on landmarks
+synthesised along it (oracle windows, or the learned pipeline with
+``--checkpoint``, from rendered frames with ``--frontend-checkpoint``),
+and prints one JSON line of the JAX CLI's keys.  Every subcommand runs on the card;
 ``--platform cpu`` selects the CPU.  Scenes are drawn by
 ``torch.Generator``s seeded from ``--seed``, not by ``jax.random``, so
 the figures match the JAX package's statistically.
@@ -165,6 +179,7 @@ def _build_parser() -> argparse.ArgumentParser:
     fe_p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
     fe_p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
     _add_vo_eval(sub)
+    _add_eval_seq(sub)
     return parser
 
 
@@ -187,14 +202,127 @@ def _add_vo_eval(sub) -> None:
         p.add_argument(flag, type=kind, default=default)
     p.add_argument("--selection", default="error", help="error | basin")
     p.add_argument("--no-refine", action="store_true")
-    p.add_argument("--stitch", default="global", help="windows pipeline only (not ported yet)")
-    p.add_argument("--host-polish", action="store_true", help="float64 host polish (not ported yet)")
+    p.add_argument(
+        "--stitch", default="global",
+        help="window stitching: global (overlap-consistent joint centre/scale solve) | robust (global with "
+        "Huber-IRLS edge weights) | chain (greedy single-pair scale chaining)",
+    )
+    p.add_argument("--host-polish", action="store_true",
+                   help="a final float64 global BA (on the estimates' device: the card has float64)")
     p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
     p.add_argument("--pipeline", default="windows", choices=("windows", "incremental"))
     p.add_argument("--association", default="geometric", choices=("geometric", "descriptor"))
     p.add_argument("--matches", default="oracle", choices=("oracle", "learned"))
     p.add_argument("--frontend-checkpoint", default=None, help="front-end .npz or fit-frontend directory")
     p.add_argument("--track-anchors", type=int, default=1, choices=(1, 2))
+
+
+def _add_eval_seq(sub) -> None:
+    """``eval-seq``'s flags, as the JAX CLI's."""
+    p = sub.add_parser(
+        "eval-seq",
+        help="evaluate trajectories in TUM/KITTI file formats: compare an estimate against ground truth, or run "
+        "windowed VO along a ground-truth file with synthesised landmarks",
+    )
+    p.add_argument("--gt", required=True, help="ground-truth trajectory file")
+    p.add_argument("--est", default=None, help="estimated trajectory file (compare mode)")
+    p.add_argument("--format", default="tum", choices=("tum", "kitti"))
+    p.add_argument("--max-dt", type=float, default=0.02, help="TUM association window (s)")
+    p.add_argument("--intrinsics", default=None, help="intrinsics file (fx fy cx cy)")
+    p.add_argument("--calib", default=None, help="KITTI calib.txt (P0 row)")
+    for flag, kind, default in (
+        ("--window", int, 4), ("--points", int, 32), ("--max-frames", int, None), ("--rpe-delta", int, 1),
+        ("--seed", int, 0), ("--restarts", int, 8), ("--hidden-size", int, None),
+        ("--transformer-layers", int, None), ("--transformer-heads", int, None),
+    ):
+        p.add_argument(flag, type=kind, default=default)
+    p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
+    p.add_argument("--checkpoint", default=None,
+                   help="guess-network .pkl: run the learned windowed VO along the file instead of the oracle solver")
+    p.add_argument("--frontend-checkpoint", default=None,
+                   help="front-end .npz or fit-frontend directory: render frames along the file and take every "
+                   "window's observations from the front end (requires --checkpoint)")
+    p.add_argument("--stitch", default="global", help="global | robust | chain")
+    p.add_argument("--pipeline", default="windows", choices=("windows", "incremental"),
+                   help="windows: per-window solves + stitching; incremental: learned bootstrap + "
+                   "PnP/triangulation/BA over detections")
+
+
+def _eval_seq(args, device) -> dict:
+    """``eval-seq``: compare mode (``--est``: TUM timestamps associated
+    within ``--max-dt``, else the common prefix; ATE and RPE in float64),
+    or VO along ``--gt`` (oracle windows, or the learned pipeline with
+    ``--checkpoint`` and ``--frontend-checkpoint``, the JAX CLI's gates:
+    NMS 0.1, centroid refinement 2, snap 0.08, cycle 0.08, quality bonus
+    10, score 0.5)."""
+    from davo_tpu_torch.data.sequences import (
+        associate_timestamps,
+        load_kitti_calib,
+        load_sequence,
+        load_tum_intrinsics,
+    )
+    from davo_tpu_torch.train.evaluation import (
+        absolute_trajectory_error,
+        camera_centers_from_poses,
+        relative_pose_error,
+    )
+    from davo_tpu_torch.train.vo_eval import TrajectoryConfig, evaluate_vo_sequence_file
+
+    intrinsics = None
+    if args.intrinsics:
+        intrinsics = load_tum_intrinsics(args.intrinsics, device=device)
+    elif args.calib:
+        intrinsics = load_kitti_calib(args.calib, device=device)
+    if args.est:
+        gt = load_sequence(args.gt, args.format, device=device, dtype=torch.float64)
+        est = load_sequence(args.est, args.format, device=device, dtype=torch.float64)
+        gt_poses, est_poses = gt.poses, est.poses
+        if args.format == "tum" and gt.timestamps is not None and est.timestamps is not None:
+            ia, ib = associate_timestamps(est.timestamps, gt.timestamps, max_dt=args.max_dt)
+            if len(ia) == 0:
+                raise ValueError("no associated timestamp pairs")
+            est_poses, gt_poses = est.poses[torch.as_tensor(ia, device=device)], gt.poses[torch.as_tensor(ib,
+                                                                                                            device=device)]
+        else:
+            k = min(gt_poses.shape[0], est_poses.shape[0])
+            gt_poses, est_poses = gt_poses[:k], est_poses[:k]
+        est_c = camera_centers_from_poses(est_poses[:, 0:3], est_poses[:, 3:6])
+        gt_c = camera_centers_from_poses(gt_poses[:, 0:3], gt_poses[:, 3:6])
+        metrics = {f"ate_{name}": value for name, value in absolute_trajectory_error(est_c, gt_c).items()}
+        metrics.update({f"rpe_{name}": value
+                        for name, value in relative_pose_error(est_poses, gt_poses, delta=args.rpe_delta).items()})
+        metrics["pairs"] = est_poses.shape[0]
+        return {k: float(v) for k, v in metrics.items()}
+
+    guess_fn = frontend_fn = detections_fn = render_config = None
+    if args.checkpoint:
+        guess_fn = _guess_fn(_guess_network(args, device))
+        if args.frontend_checkpoint:
+            from davo_tpu_torch.models import load_frontend
+
+            frontend, render_config = load_frontend(
+                args.frontend_checkpoint, device=device, default_points=args.points, nms_radius=0.1,
+                centroid_refine_iters=2, snap_radius=0.08, cycle_threshold=0.08, quality_bonus=10.0,
+                score_threshold=0.5,
+            )
+
+            def frontend_fn(images):
+                out = frontend(images)
+                return out.matches, out.match_visibility
+
+            if args.pipeline == "incremental":
+                def detections_fn(images):
+                    out = frontend(images)
+                    return out.points, torch.sigmoid(out.scores)
+    elif args.frontend_checkpoint:
+        raise ValueError("--frontend-checkpoint requires --checkpoint")
+    metrics = evaluate_vo_sequence_file(
+        args.gt, format=args.format, config=TrajectoryConfig(window=args.window),
+        generator=torch.Generator(device).manual_seed(args.seed), intrinsics=intrinsics, max_frames=args.max_frames,
+        num_points=args.points, guess_fn=guess_fn, frontend_fn=frontend_fn, render_config=render_config,
+        stitch=args.stitch, pipeline=args.pipeline, detections_fn=detections_fn, device=device,
+    )
+    return {k: float(v) for k, v in metrics.items()}
 
 
 def _fit_frontend(args, device, logger) -> dict:
@@ -208,6 +336,46 @@ def _fit_frontend(args, device, logger) -> dict:
     return {"final": history["val"][-1] if history["val"] else history["train"][-1]}
 
 
+def _guess_network(args, device, **fields):
+    """The guess network at ``args.checkpoint`` (the JAX package's numpy
+    pickle) with the curriculum preset's eval solver (the JAX CLI's single
+    source of truth for the eval solve budget), ``args.window`` views,
+    ``args.points`` points, ``args.restarts`` restarts and the width
+    flags."""
+    from davo_tpu_torch.models import load_flax_weights, load_numpy_checkpoint
+    from davo_tpu_torch.train import get_preset
+
+    net_cfg = dataclasses.replace(
+        get_preset("calibration_transformer_curriculum"), num_views=args.window, num_points=args.points,
+        num_restarts=args.restarts, **fields,
+    )
+    for field in ("hidden_size", "transformer_layers", "transformer_heads"):
+        if getattr(args, field) is not None:
+            net_cfg = dataclasses.replace(net_cfg, **{field: getattr(args, field)})
+    net = net_cfg.build_network(device)
+    restored = load_numpy_checkpoint(args.checkpoint)
+    load_flax_weights(net, restored["params"], restored.get("batch_stats"))
+    return net
+
+
+def _guess_fn(net):
+    """The VO pipelines' guess function: rows in, rows out (``(B, M, N, 2),
+    (B, M, N) -> (B, P)``).  Every row gets the restart draw of a one-row
+    call (a generator seeded 0; ``restart_draws`` of shape ``(1, R - 1, P)``
+    replaces it), as the JAX CLI's jitted guess draws ``key(0)`` a call:
+    a window solved in a stack is solved as it would be alone."""
+    def guess_fn(pixels, visibility, restart_draws=None, **network_kwargs):
+        if restart_draws is None and net.num_restarts > 1 and net.restart_proposals == "noise":
+            restart_draws = torch.randn((1, net.num_restarts - 1, net.num_parameters), dtype=pixels.dtype,
+                                        device=pixels.device,
+                                        generator=torch.Generator(pixels.device).manual_seed(0))
+        if restart_draws is not None:
+            restart_draws = restart_draws.expand(pixels.shape[0], -1, -1)
+        return net(pixels, visibility, restart_draws=restart_draws, **network_kwargs)
+
+    return guess_fn
+
+
 def vo_eval_setup(args, device):
     """``vo-eval``'s sequence configuration and the keyword arguments of
     :func:`davo_tpu_torch.train.vo_eval.evaluate_learned_vo` (all but the
@@ -218,30 +386,13 @@ def vo_eval_setup(args, device):
     from davo_tpu_torch.train import get_preset
     from davo_tpu_torch.train.vo_eval import TrajectoryConfig
 
-    for refused, what in ((args.pipeline == "windows", "--pipeline windows"), (args.multistart > 0, "--multistart"),
-                          (args.host_polish, "--host-polish")):
-        if refused:
-            raise NotImplementedError(f"vo-eval {what} is not ported yet (ROADMAP.md Queue 1 item 10)")
     if args.matches == "learned" and not args.frontend_checkpoint:
         raise ValueError("--matches learned requires --frontend-checkpoint")
     scene_points = args.scene_points or args.points
     if scene_points != args.points and args.matches != "learned":
         raise ValueError("--scene-points requires --matches learned (oracle matches go straight to the solver)")
-    # the curriculum preset's eval solver (the JAX CLI's single source of
-    # truth for the eval solve budget)
-    net_cfg = dataclasses.replace(
-        get_preset("calibration_transformer_curriculum"), num_views=args.window, num_points=args.points,
-        num_restarts=args.restarts, selection=args.selection, basin_anchor_weight=args.basin_anchor,
-    )
-    for field in ("hidden_size", "transformer_layers", "transformer_heads"):
-        if getattr(args, field) is not None:
-            net_cfg = dataclasses.replace(net_cfg, **{field: getattr(args, field)})
-    net = net_cfg.build_network(device)
-    restored = load_numpy_checkpoint(args.checkpoint)
-    load_flax_weights(net, restored["params"], restored.get("batch_stats"))
-
-    def guess_fn(pixels, visibility, **network_kwargs):
-        return net(pixels, visibility, **network_kwargs)
+    guess_fn = _guess_fn(_guess_network(args, device, selection=args.selection,
+                                        basin_anchor_weight=args.basin_anchor))
 
     frontend_fn = track_fn = detections_fn = render_config = None
     if args.matches == "learned":
@@ -290,6 +441,9 @@ def vo_eval_setup(args, device):
         guess_fn=guess_fn,
         refine=not args.no_refine,
         refine_rounds=args.refine_rounds,
+        host_polish=args.host_polish,
+        multistart=args.multistart,
+        stitch=args.stitch,
         frontend_fn=frontend_fn,
         render_config=render_config,
         track_fn=track_fn,
@@ -341,6 +495,8 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(None if args.platform is None else _PLATFORMS[args.platform])
     if args.command == "vo-eval":
         return _vo_eval(args, device)
+    if args.command == "eval-seq":
+        return _eval_seq(args, device)
     logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir)
     if args.command == "fit-frontend":
         return _fit_frontend(args, device, logger)

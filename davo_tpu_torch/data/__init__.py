@@ -8,6 +8,15 @@ from .rendering import (
     render_views_nokey,
     sample_appearance,
 )
+from .sequences import (
+    SequenceData,
+    associate_timestamps,
+    load_kitti_calib,
+    load_kitti_trajectory,
+    load_sequence,
+    load_tum_intrinsics,
+    load_tum_trajectory,
+)
 from .synthetic import (
     SceneConfig,
     draw_scene_noise,
@@ -31,6 +40,13 @@ __all__ = [
     "render_views",
     "render_views_nokey",
     "sample_appearance",
+    "SequenceData",
+    "associate_timestamps",
+    "load_kitti_calib",
+    "load_kitti_trajectory",
+    "load_sequence",
+    "load_tum_intrinsics",
+    "load_tum_trajectory",
     "SceneConfig",
     "draw_scene_noise",
     "generate_batch",

@@ -30,6 +30,7 @@ from .frontend import (
 )
 from .metrics import MetricsLogger
 from .presets import PRESETS, get_preset
+from .vo_eval import TrajectoryConfig, evaluate_vo, generate_trajectory, solve_windowed_vo
 
 __all__ = [
     "CalibrationExperiment",
@@ -61,4 +62,8 @@ __all__ = [
     "frontend_loss",
     "render_scene_batch",
     "save_frontend_checkpoint",
+    "TrajectoryConfig",
+    "generate_trajectory",
+    "solve_windowed_vo",
+    "evaluate_vo",
 ]

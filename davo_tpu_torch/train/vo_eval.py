@@ -1,35 +1,43 @@
-"""Learned visual odometry on synthetic sequences, incremental pipeline
-(the port of the incremental half of ``davo_tpu/train/vo_eval.py``).
+"""Visual odometry on synthetic sequences and along trajectory files (the
+port of ``davo_tpu/train/vo_eval.py``).
 
 1. A smooth synthetic camera orbit observes a point cloud
-   (:func:`generate_trajectory`); with a front end the frames are
-   rendered (:func:`render_trajectory_images`) and the observations come
-   from the learned detector and matcher.
-2. A learned window solve (guess head + in-forward BFGS, kernels K1 and
-   K2) bootstraps the gauge, the first poses and the intrinsics, with
-   geometry-informed IRLS re-solves.
-3. Incremental SfM accumulates the rest: per frame a constant-velocity
+   (:func:`generate_trajectory`), or landmarks are synthesised along a
+   TUM/KITTI trajectory file (:func:`observations_for_poses`); with a
+   front end the frames are rendered (:func:`render_trajectory_images`)
+   and the observations come from the learned detector and matcher.
+2. Windows pipeline (the default): every overlapping window is solved by
+   the learned guess head and its in-forward BFGS (kernels K1 and K2),
+   all windows stacked in one call (:func:`solve_learned_windows`), and
+   the window-relative poses are stitched greedily or by the
+   overlap-consistent rotation-graph and centre/scale least squares
+   (:func:`stitch_windows_global`, optionally robust).  The oracle-prior
+   variant chains Schur-BA windows (:func:`solve_windowed_vo`).
+3. Incremental pipeline: a learned bootstrap window (with IRLS
+   re-solves), then incremental SfM: per frame a constant-velocity
    prediction, geometric data association to the raw detections (host
    numpy, as in the JAX package), PnP (Levenberg-Marquardt, optionally
-   RANSAC over association subsets), re-triangulation, and a periodic
-   Schur bundle adjustment with in-call Huber IRLS
-   (:func:`solve_incremental_vo_detections`); with descriptor association
-   the matcher's whole-sequence tracks go straight to the accumulator
-   (:func:`solve_incremental_vo`).  The lowest-cost of several bootstrap
-   windows' chains wins (:func:`solve_learned_vo_incremental`).
-4. The estimate is similarity-aligned to the truth for the ATE.
+   RANSAC), re-triangulation, and a periodic Schur BA with in-call Huber
+   IRLS (:func:`solve_incremental_vo_detections`); with descriptor
+   association the matcher's tracks go straight to the accumulator
+   (:func:`solve_incremental_vo`).  The lowest-cost bootstrap wins
+   (:func:`solve_learned_vo_incremental`).
+4. Refinement: global triangulation + Schur BA
+   (:func:`refine_trajectory_global`), multi-start over scale modes
+   (:func:`refine_trajectory_multistart`), a float64 polish
+   (:func:`refine_trajectory_host_f64`), or a BFGS over per-segment scales
+   (:func:`correct_scale_drift`, kernel K1 at P = K - 1).
+5. The estimate is similarity-aligned to the truth for the ATE (and the
+   RPE along a file).
 
 Random numbers come from explicit ``torch.Generator``s; each draw is
-split from the deterministic function that consumes it
-(:func:`draw_trajectory_noise` / :func:`trajectory_from_noise`,
-:func:`draw_trajectory_render_noise`), so a test can inject the JAX
+split from the deterministic function that consumes it (the ``draw_*``
+functions, the ``noise`` arguments), so a test can inject the JAX
 package's own draws.  The PnP Jacobian is analytic
 (:func:`davo_tpu_torch.geometry.so3_parameter_jacobian`) where the JAX
 package takes ``jax.jacfwd``.  The per-frame loop syncs the host where
 the JAX package converts to numpy; the LM and Schur loops run a fixed
-number of iterations and never sync.  The windows pipeline, multi-start
-refinement and the host float64 polish are not ported yet (``ROADMAP.md``
-Queue 1 item 10).
+number of iterations and never sync.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from davo_tpu_torch.geometry import (
     so3_parameter_jacobian,
     so3_rotation_matrix,
 )
-from davo_tpu_torch.parallel import BAObservations, BAProblem, SchurConfig, schur_ba_solve
+from davo_tpu_torch.parallel import BAObservations, BAProblem, SchurConfig, ba_cost, schur_ba_solve
 from davo_tpu_torch.solve.least_squares import LMConfig, levenberg_marquardt
 from davo_tpu_torch.utils.device import resolve_device
 from davo_tpu_torch.utils.precision import full_f32_matmuls
@@ -70,17 +78,27 @@ __all__ = [
     "generate_trajectory",
     "draw_trajectory_render_noise",
     "render_trajectory_images",
+    "draw_window_prior_noise",
+    "solve_windowed_vo",
+    "stitch_windows_global",
+    "stitch_windows",
+    "solve_learned_windows",
+    "solve_windowed_vo_learned",
     "triangulate_points",
     "pnp_pose",
     "solve_incremental_vo",
     "solve_incremental_vo_detections",
     "solve_learned_vo_incremental",
     "refine_trajectory_global",
+    "refine_trajectory_multistart",
+    "correct_scale_drift",
+    "refine_trajectory_host_f64",
     "evaluate_learned_vo",
+    "draw_observation_noise",
+    "observations_for_poses",
+    "evaluate_vo_sequence_file",
+    "evaluate_vo",
 ]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 10)"
-
 
 @dataclasses.dataclass(frozen=True)
 class TrajectoryConfig:
@@ -203,6 +221,430 @@ def _to_window_frame(poses: torch.Tensor, anchor: torch.Tensor) -> torch.Tensor:
     r_rel = so3_rotation_matrix(poses[:, 0:3]) @ r_a.T
     t_rel = poses[:, 3:6] - torch.einsum("kij,j->ki", r_rel, anchor[3:6])
     return torch.cat([axis_angle_from_matrix(r_rel), t_rel], dim=-1)
+
+
+def _vo_gauge_masks(num_frames: int, num_points: int):
+    """The gauge of a VO bundle adjustment: intrinsics frozen, pose 0 and
+    point 0's depth pinned."""
+    pose_free = np.ones((num_frames, 6), bool)
+    pose_free[0] = False
+    point_free = np.ones((num_points, 3), bool)
+    point_free[0, 2] = False
+    return np.zeros(3, bool), pose_free, point_free
+
+
+def draw_window_prior_noise(
+    generator: torch.Generator, num_frames: int, num_points: int, dtype=torch.float32, device=None
+) -> Dict[str, torch.Tensor]:
+    """The standard-normal draws of :func:`solve_windowed_vo`'s odometry
+    priors: ``poses`` ``(K - 1, 6)`` and ``points`` ``(N, 3)``."""
+    return dict(
+        poses=torch.randn((num_frames - 1, 6), generator=generator, dtype=dtype, device=device),
+        points=torch.randn((num_points, 3), generator=generator, dtype=dtype, device=device),
+    )
+
+
+def solve_windowed_vo(
+    true_poses: torch.Tensor,
+    points: torch.Tensor,
+    pixels: torch.Tensor,
+    visibility: torch.Tensor,
+    config: TrajectoryConfig,
+    generator: Optional[torch.Generator] = None,
+    intrinsics: Optional[torch.Tensor] = None,
+    noise: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Estimate the trajectory by chaining per-window bundle adjustments.
+
+    Windows of ``config.window`` consecutive frames overlap by one frame.
+    Each is solved by the Schur BA in its first camera's frame (intrinsics
+    frozen, the anchor pose and one point depth pinned), started from
+    noise-perturbed odometry priors (the poses but frame 0's, and the
+    points, ``config.init_noise`` times :func:`draw_window_prior_noise`'s
+    draws of ``generator``, or ``noise``), and chained onto the running
+    estimate; the refined points carry over to the next window.
+
+    :return: ``(K, 6)`` estimated absolute poses (gauge: frame 0).
+    """
+    full_f32_matmuls()
+    kf, w = true_poses.shape[0], config.window
+    stride = w - 1
+    num_windows = (kf - 1 + stride - 1) // stride
+    dtype, device = true_poses.dtype, true_poses.device
+    if intrinsics is None:
+        intrinsics = torch.tensor([config.focal_length, 0.0, 0.0], dtype=dtype, device=device)
+    if noise is None:
+        noise = draw_window_prior_noise(generator, kf, points.shape[0], dtype, device)
+    prior_poses = torch.cat([true_poses[:1], true_poses[1:] + config.init_noise * noise["poses"]])
+    est_points = points + config.init_noise * noise["points"]
+    vis = visibility.to(dtype)
+    # intrinsics known (the VO setting); the anchor pose and one point
+    # depth fix each window's gauge
+    masks = _vo_gauge_masks(w, points.shape[0])
+    estimates = torch.zeros(kf, 6, dtype=dtype, device=device)
+    estimates[0] = true_poses[0]
+    for wi in range(num_windows):
+        start = min(wi * stride, kf - w)
+        anchor = estimates[start].clone()
+        r_anchor = so3_rotation_matrix(anchor[0:3])
+        # window-frame world: the points in the anchor camera's frame
+        window_points = torch.einsum("ij,nj->ni", r_anchor, est_points) + anchor[3:6]
+        solved = schur_ba_solve(
+            BAProblem(
+                intrinsics=intrinsics,
+                poses=_to_window_frame(prior_poses[start : start + w], prior_poses[start]),
+                points=window_points,
+            ),
+            BAObservations(pixels=pixels[start : start + w], visibility=vis[start : start + w]),
+            config.solver,
+            gauge_masks=masks,
+        )
+        for j in range(1, w):
+            estimates[start + j] = _compose(anchor, solved.poses[j])
+        # the refined points back in world coordinates for the next window
+        est_points = torch.einsum("ji,nj->ni", r_anchor, solved.points - anchor[3:6])
+    return estimates
+
+
+def _window_starts(num_frames: int, window: int, stride: int) -> list:
+    """Anchor frames of the overlapping windows covering the sequence."""
+    starts = []
+    start = 0
+    while True:
+        start = min(start, num_frames - window)
+        starts.append(start)
+        if start + window >= num_frames:
+            return starts
+        start += stride
+
+
+def _stitch_chain(starts, window_poses, num_frames: int) -> torch.Tensor:
+    """Greedy stitching: rotations chain through each window's anchor;
+    each window's gauge scale is fixed from the previously estimated
+    relative translation of the shared pair ``(start, start + 1)``, so
+    scale errors compound along the chain (see
+    :func:`stitch_windows_global`).
+
+    :param window_poses: ``(W, w, 6)`` (or a list of ``(w, 6)``)
+        window-relative poses.
+    """
+    dtype, device = window_poses[0].dtype, window_poses[0].device
+    estimates = torch.zeros(num_frames, 6, dtype=dtype, device=device)
+    for wi, start in enumerate(starts):
+        poses_w = window_poses[wi]
+        w = poses_w.shape[0]
+        if wi == 0:
+            scale = 1.0
+            first_new = 1
+        else:
+            chained_rel = _to_window_frame(estimates[start : start + 2], estimates[start])[1]
+            num = torch.linalg.vector_norm(chained_rel[3:6])
+            den = torch.clamp(torch.linalg.vector_norm(poses_w[1, 3:6]), min=1e-9)
+            scale = num / den
+            # frames up to the previous window's end are already estimated
+            first_new = starts[wi - 1] + w - start
+        anchor = estimates[start].clone()
+        for j in range(first_new, w):
+            scaled = torch.cat([poses_w[j, 0:3], poses_w[j, 3:6] * scale])
+            estimates[start + j] = _compose(anchor, scaled)
+    return estimates
+
+
+def _huber_row_scale(norms: torch.Tensor, floor: float) -> torch.Tensor:
+    """Huber IRLS sqrt-weights: unit inside the scale, ``sqrt(scale/|r|)``
+    beyond it.  The scale is the 70th percentile of the residual norms
+    (linear interpolation, as ``jnp.percentile``; not the MAD: after
+    consensus chaining most residuals are exactly zero, which collapses a
+    median-based scale) with an absolute floor."""
+    scale = torch.clamp(torch.quantile(norms, 0.7), min=floor)
+    return torch.sqrt(torch.clamp(scale / torch.clamp(norms, min=1e-12), max=1.0))
+
+
+def _lstsq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The least-squares solution of a tall, full-column-rank system (the
+    ``gels`` driver, QR: the only one on the card)."""
+    return torch.linalg.lstsq(a, b[:, None], driver="gels").solution[:, 0]
+
+
+def stitch_windows_global(
+    starts,
+    window_poses,
+    num_frames: int,
+    rotation_iterations: int = 2,
+    robust: bool = False,
+) -> torch.Tensor:
+    """Overlap-consistent global stitching of window-relative solves.
+
+    Greedy chaining (:func:`_stitch_chain`) fixes each window's gauge
+    scale from a single shared frame pair; this solver uses every overlap
+    constraint jointly:
+
+    1. **Rotation-graph Gauss-Newton.**  Every window edge
+       ``(start, start + j)`` constrains ``R[start+j] = R_rel[w, j]
+       R[start]``; from greedy chaining, the linearised residuals
+       ``r_e = log(R_f (R_rel R_s)^T)`` give ``delta_f - delta_s = -r_e``
+       over per-frame tangent perturbations, solved by least squares and
+       applied ``R_f <- exp(delta_f) R_f`` (``rotation_iterations``
+       rounds, two more when robust).
+    2. **Joint centre/scale least squares.**  Camera centres obey
+       ``c[start+j] = c[start] + s_w R_anchor[w]^T cw[w, j]``, linear in
+       all centres and window scales; ``c[0] = 0`` and ``s_0 = 1`` fix
+       the gauge.
+
+    Both systems are tall and of full column rank (every frame is reached
+    from frame 0 through the window edges), so ``torch.linalg.lstsq``'s
+    ``gels`` driver (QR, the only one on the card) gives their solution;
+    the JAX package's ``jnp.linalg.lstsq`` is SVD-based and agrees to
+    rounding.  Percentiles are ``torch.quantile`` with linear
+    interpolation, as ``jnp.percentile``.
+
+    :param starts: ``W`` window anchor frames.
+    :param window_poses: ``(W, w, 6)`` (or a list of ``(w, 6)``)
+        window-relative poses, frame ``starts[i]`` the identity in each
+        window's own gauge.
+    :param robust: Huber-IRLS down-weighting of outlier edges in both
+        solves (scale: the 70th percentile of the residual norms, floors
+        0.02 rad and 1 % of the longest window displacement).  The
+        rotations are seeded by each frame's consensus candidate over its
+        covering windows (the first of equal costs: with two candidates
+        the costs tie and the greedy one wins); windows whose rotation
+        edges stay outliers after the robust rotation pass (above
+        ``max(3 x`` the 70th percentile, 0.1)) are gated to weight 1e-3
+        in the centre solve before its four IRLS rounds, so one
+        catastrophic window solve stays local.
+    :return: ``(K, 6)`` absolute world->camera poses (frame 0 the
+        identity, the first window's scale).
+    """
+    kf, n_win = num_frames, len(starts)
+    w = window_poses[0].shape[0]
+    dtype, device = window_poses[0].dtype, window_poses[0].device
+    rel_rots = torch.stack([so3_rotation_matrix(wp[:, 0:3]) for wp in window_poses])  # (W, w, 3, 3)
+    eye3 = torch.eye(3, dtype=dtype, device=device)
+
+    # pass 1: rotation chaining seeds the graph optimisation; the robust
+    # path takes each frame's consensus candidate over its covering windows
+    rot = [None] * kf
+    rot[0] = eye3
+    if robust:
+        cover = {}
+        for wi, s in enumerate(starts):
+            for j in range(1, w):
+                cover.setdefault(s + j, []).append((wi, s, j))
+        for f in range(1, kf):
+            cands = [rel_rots[wi, j] @ rot[s] for wi, s, j in cover.get(f, []) if rot[s] is not None]
+            if len(cands) == 1:
+                rot[f] = cands[0]
+                continue
+            cand = torch.stack(cands)
+            pair = torch.einsum("aij,bkj->abik", cand, cand)  # c_a c_b^T
+            ang = torch.linalg.vector_norm(axis_angle_from_matrix(pair), dim=-1)
+            rot[f] = cand[torch.argmin(ang.sum(dim=1))]
+    else:
+        for wi, s in enumerate(starts):
+            for j in range(1, w):
+                if rot[s + j] is None:
+                    rot[s + j] = rel_rots[wi, j] @ rot[s]
+    rot = torch.stack(rot)
+
+    # pass 2: rotation-graph Gauss-Newton over the tangent perturbations of
+    # frames 1..K-1 (frame 0 fixes the gauge); 3 equations an edge, in
+    # window-major order
+    edge_s = np.asarray([s for s in starts for _ in range(1, w)])
+    edge_f = np.asarray([s + j for s in starts for j in range(1, w)])
+    num_edges = len(edge_f)
+    a_rot = np.zeros((3 * num_edges, 3 * (kf - 1)))
+    for e, (s, f) in enumerate(zip(edge_s, edge_f)):
+        a_rot[3 * e : 3 * e + 3, 3 * (f - 1) : 3 * f] = np.eye(3)
+        if s > 0:
+            a_rot[3 * e : 3 * e + 3, 3 * (s - 1) : 3 * s] -= np.eye(3)
+    a_rot = torch.as_tensor(a_rot, dtype=dtype, device=device)
+    r_edge = rel_rots[:, 1:].reshape(num_edges, 3, 3)
+    s_idx = torch.as_tensor(edge_s, device=device)
+    f_idx = torch.as_tensor(edge_f, device=device)
+
+    def edge_residuals(rot):
+        return axis_angle_from_matrix(rot[f_idx] @ (r_edge @ rot[s_idx]).transpose(-1, -2))  # (E, 3)
+
+    for _ in range(max(0, rotation_iterations + (2 if robust else 0))):
+        residuals = edge_residuals(rot)
+        b_rot = -residuals.reshape(-1)
+        a_eff = a_rot
+        if robust:
+            # rotation edges inside ~1 degree are inliers
+            sw3 = torch.repeat_interleave(_huber_row_scale(torch.linalg.vector_norm(residuals, dim=-1), 0.02), 3)
+            a_eff = a_rot * sw3[:, None]
+            b_rot = b_rot * sw3
+        delta = _lstsq(a_eff, b_rot).reshape(kf - 1, 3)
+        rot = torch.cat([rot[:1], so3_rotation_matrix(delta) @ rot[1:]])
+
+    # the per-window gate of the centre solve: windows whose rotation edges
+    # stay outliers are known-bad; a small nonzero weight keeps frames that
+    # only a bad window covers determined (badly, but locally)
+    win_gate = None
+    if robust:
+        win_res = torch.linalg.vector_norm(edge_residuals(rot), dim=-1).reshape(n_win, w - 1).amax(dim=-1)
+        bad_thresh = torch.clamp(3.0 * torch.quantile(win_res, 0.7), min=0.1)
+        win_gate = torch.where(win_res > bad_thresh, 1e-3, 1.0).to(dtype)
+
+    # joint linear least squares for the centres c_1..c_{K-1} and the window
+    # scales s_1..s_{W-1}: edge e of window wi reads c_f - c_s = d_e for the
+    # first window and c_f - c_s - s_wi d_e = 0 for the others
+    nc = 3 * (kf - 1)
+    window_of = np.repeat(np.arange(n_win), w - 1)
+    cw = -torch.einsum("eji,ej->ei", r_edge, torch.stack([wp[1:, 3:6] for wp in window_poses]).reshape(-1, 3))
+    d = torch.einsum("eji,ej->ei", rot[s_idx], cw)  # R_anchor^T cw
+    scale_onehot = np.zeros((num_edges, n_win - 1))
+    later = window_of > 0
+    scale_onehot[np.flatnonzero(later), window_of[later] - 1] = 1.0
+    scale_onehot = torch.as_tensor(scale_onehot, dtype=dtype, device=device)
+    a_mat = torch.cat(
+        [a_rot, (-d[:, :, None] * scale_onehot[:, None, :]).reshape(3 * num_edges, n_win - 1)], dim=1
+    )
+    first = torch.as_tensor(~later, dtype=dtype, device=device)
+    b_vec = (d * first[:, None]).reshape(-1)
+    if robust:
+        # gate known-bad windows' edges before the first solve, then
+        # IRLS-refine from that clean solution
+        gate = torch.repeat_interleave(win_gate, w - 1)  # rows follow edge order
+        gate3 = torch.repeat_interleave(gate, 3)
+        solution = _lstsq(a_mat * gate3[:, None], b_vec * gate3)
+        # the centre-residual floor, relative to the window displacements
+        edge_len = torch.linalg.vector_norm(b_vec.reshape(-1, 3), dim=-1)
+        c_floor = 0.01 * torch.clamp(torch.amax(edge_len), min=1e-6)
+        for _ in range(4):
+            res = (a_mat @ solution - b_vec).reshape(-1, 3)
+            sw3 = torch.repeat_interleave(gate * _huber_row_scale(torch.linalg.vector_norm(res, dim=-1), c_floor), 3)
+            solution = _lstsq(a_mat * sw3[:, None], b_vec * sw3)
+    else:
+        solution = _lstsq(a_mat, b_vec)
+    centres = torch.cat([torch.zeros(1, 3, dtype=dtype, device=device), solution[:nc].reshape(kf - 1, 3)])
+    t_all = -torch.einsum("kij,kj->ki", rot, centres)
+    return torch.cat([axis_angle_from_matrix(rot), t_all], dim=-1)
+
+
+def _window_layout(num_frames: int, config: TrajectoryConfig):
+    """Check the windows pipeline's shape rules; ``(window, stride)``."""
+    w = config.window
+    if w < 3:
+        raise ValueError(
+            "learned VO needs window >= 3: consecutive windows overlap by two frames and the shared pair's "
+            f"relative translation anchors each window's gauge scale (got window={w})"
+        )
+    if num_frames < w:
+        raise ValueError(f"sequence of {num_frames} frames is shorter than the window ({w})")
+    stride = config.stride if config.stride else w - 2
+    if not 1 <= stride <= w - 2:
+        raise ValueError(
+            f"stride must be in [1, window - 2] = [1, {w - 2}] so that consecutive windows overlap by >= 2 "
+            f"frames (got {stride})"
+        )
+    return w, stride
+
+
+def solve_learned_windows(
+    guess_fn: Callable,
+    pixels: torch.Tensor,
+    visibility: torch.Tensor,
+    config: TrajectoryConfig,
+    images: Optional[torch.Tensor] = None,
+    frontend_fn: Optional[Callable] = None,
+    irls_rounds: int = 0,
+):
+    """Every window's learned solve, all windows in one call: the window
+    half of :func:`solve_windowed_vo_learned`.
+
+    The JAX package calls ``guess_fn`` once a window; here the windows are
+    stacked on the batch axis and ``guess_fn`` (and ``frontend_fn``) is
+    called once for all of them, and once more for each IRLS round.  Each
+    row must get what a call of its own would get (the CLI's guess
+    function gives every row the restart draw of a one-row call), so the
+    result equals the per-window loop's.
+
+    :param guess_fn: rows in, rows out: ``(pixels (W, M, N, 2),
+        visibility (W, M, N))`` to flat calibration vectors ``(W, P)``.
+    :param frontend_fn: ``images (W, M, H, W_img, C)`` to
+        ``(matches (W, M, N, 2), visibility (W, M, N))``.
+    :param irls_rounds: geometry-informed re-solves: after each solve a
+        window's observations are Huber-weighted against its own solution
+        (scale: the 70th percentile of its visible reprojection angles,
+        ``torch.nanquantile``, floor 5e-3; no visible observation gives
+        the floor) and the windows are solved again.
+    :return: ``(starts, window_poses (W, w, 6))``, frame ``starts[i]`` the
+        identity of window ``i``.
+    """
+    kf = pixels.shape[0]
+    w, stride = _window_layout(kf, config)
+    if (frontend_fn is None) != (images is None):
+        raise ValueError("images and frontend_fn must be given together")
+    starts = _window_starts(kf, w, stride)
+    idx = torch.as_tensor([list(range(s, s + w)) for s in starts], device=pixels.device)
+    if frontend_fn is not None:
+        w_pix, w_vis = frontend_fn(images[idx.to(images.device)])
+    else:
+        w_pix, w_vis = pixels[idx], visibility[idx]
+    vecs = guess_fn(w_pix, w_vis)
+    for _ in range(max(0, irls_rounds)):
+        res = calibration_residuals(vecs, w_pix)  # (W, M, N)
+        masked = torch.where(w_vis > 0, res, torch.full_like(res, float("nan")))
+        scale = torch.clamp(
+            torch.nan_to_num(torch.nanquantile(masked.reshape(res.shape[0], -1), 0.7, dim=-1), nan=5e-3), min=5e-3
+        )
+        w_vis = w_vis * torch.clamp(scale[:, None, None] / torch.clamp(res, min=1e-9), max=1.0)
+        vecs = guess_fn(w_pix, w_vis)
+    # N from the window observations: a front end's global tracks may be
+    # wider than the per-window match count the guess network takes
+    params = unpack_calibration_parameters(vecs, w, w_pix.shape[2])
+    rel = torch.cat([params.camera_rotations[:, :, 0, :], params.camera_translations[:, :, 0, :]], dim=-1)
+    return starts, torch.cat([torch.zeros_like(rel[:, :1]), rel], dim=1)
+
+
+def stitch_windows(starts, window_poses, num_frames: int, stitch: str = "global") -> torch.Tensor:
+    """Window-relative poses to a trajectory: ``chain``
+    (:func:`_stitch_chain`), ``global`` or ``robust``
+    (:func:`stitch_windows_global`)."""
+    if stitch in ("global", "robust"):
+        return stitch_windows_global(starts, window_poses, num_frames, robust=stitch == "robust")
+    if stitch == "chain":
+        return _stitch_chain(starts, window_poses, num_frames)
+    raise ValueError(f"unknown stitch mode {stitch!r}")
+
+
+def solve_windowed_vo_learned(
+    guess_fn: Callable,
+    pixels: torch.Tensor,
+    visibility: torch.Tensor,
+    config: TrajectoryConfig,
+    stitch: str = "global",
+    images: Optional[torch.Tensor] = None,
+    frontend_fn: Optional[Callable] = None,
+    irls_rounds: int = 0,
+) -> torch.Tensor:
+    """Full learned VO from observations alone: every window of
+    ``config.window`` frames (consecutive windows overlap by ``window -
+    stride >= 2``) is solved by ``guess_fn`` (a trained calibration
+    network: guess and in-forward BFGS), all windows in one call
+    (:func:`solve_learned_windows`), and the window-relative poses are
+    stitched (:func:`stitch_windows`: greedy ``chain``, or the
+    overlap-consistent ``global`` or ``robust`` joint solve).
+
+    :param guess_fn: rows in, rows out: ``(W, M, N, 2), (W, M, N) ->
+        (W, P)``.
+    :param pixels: ``(K, N, 2)`` sequence observations (with
+        ``frontend_fn``, only their shape is used).
+    :param visibility: ``(K, N)``.
+    :param images: ``(K, H, W, C)`` rendered frames: with ``frontend_fn``
+        each window's observations come from the front end on these.
+    :return: ``(K, 6)`` estimated absolute poses (frame 0 the identity,
+        the first window's scale).
+    """
+    full_f32_matmuls()
+    _window_layout(pixels.shape[0], config)
+    if stitch not in ("chain", "global", "robust"):
+        raise ValueError(f"unknown stitch mode {stitch!r}")
+    starts, window_poses = solve_learned_windows(
+        guess_fn, pixels, visibility, config, images=images, frontend_fn=frontend_fn, irls_rounds=irls_rounds
+    )
+    return stitch_windows(starts, window_poses, pixels.shape[0], stitch)
 
 
 def triangulate_points(
@@ -927,12 +1369,7 @@ def refine_trajectory_global(
         raise NotImplementedError("refine_trajectory_global(mesh=...): the distributed Schur BA is not ported yet "
                                   "(ROADMAP.md Queue 1 item 9)")
     full_f32_matmuls()
-    kf, n = pixels.shape[0], pixels.shape[1]
-    pose_free = np.ones((kf, 6), bool)
-    pose_free[0] = False
-    point_free = np.ones((n, 3), bool)
-    point_free[0, 2] = False
-    masks = (np.zeros(3, bool), pose_free, point_free)
+    masks = _vo_gauge_masks(pixels.shape[0], pixels.shape[1])
     poses = estimates
     for _ in range(max(1, rounds)):
         points = triangulate_points(poses, intrinsics, pixels, visibility)
@@ -945,6 +1382,143 @@ def refine_trajectory_global(
     return poses
 
 
+def _rescale_segments(estimates: torch.Tensor, log_s: torch.Tensor) -> torch.Tensor:
+    """Rescale the camera-centre increments of a trajectory,
+    ``c_k(s) = c_0 + sum_{j<k} exp(s_j) (c_{j+1} - c_j)``, rotations
+    unchanged: the deformation family of chained window-scale drift.
+
+    :param estimates: ``(K, 6)`` world->camera poses.
+    :param log_s: ``(..., K - 1)`` per-segment log scales.
+    :return: ``(..., K, 6)`` rescaled poses.
+    """
+    rot = so3_rotation_matrix(estimates[:, 0:3])  # (K, 3, 3)
+    centres = -torch.einsum("kji,kj->ki", rot, estimates[:, 3:6])
+    scaled = torch.exp(log_s)[..., None] * (centres[1:] - centres[:-1])
+    zero = torch.zeros(log_s.shape[:-1] + (1, 3), dtype=estimates.dtype, device=estimates.device)
+    new_centres = centres[0] + torch.cat([zero, torch.cumsum(scaled, dim=-2)], dim=-2)
+    t = -torch.einsum("kij,...kj->...ki", rot, new_centres)
+    return torch.cat([estimates[:, 0:3].expand(t.shape), t], dim=-1)
+
+
+def refine_trajectory_multistart(
+    estimates: torch.Tensor,
+    intrinsics: torch.Tensor,
+    pixels: torch.Tensor,
+    visibility: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    num_hypotheses: int = 16,
+    modes: int = 4,
+    sigma: float = 0.25,
+    solver: SchurConfig = SchurConfig(iterations=30, damping=1e-3),
+    rounds: int = 2,
+    coefficients: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-hypothesis global refinement that escapes the stitched-scale
+    family of local minima: the trajectory is perturbed along ``modes``
+    low-order cosine modes of per-segment log-scale (coefficients
+    ``sigma`` times standard normals, ``(num_hypotheses - 1, modes)``
+    drawn from ``generator`` or given as ``coefficients``; hypothesis 0
+    is unperturbed), every hypothesis is refined by ``rounds`` of DLT
+    triangulation and Schur BA, and the one of lowest final reprojection
+    cost (:func:`~davo_tpu_torch.parallel.ba_cost`, the first of equal
+    costs) wins.  The port's Schur BA takes one problem, so the
+    hypotheses run one after another (the JAX package vmaps them).
+
+    :return: ``(K, 6)`` refined poses of the best-cost hypothesis.
+    """
+    full_f32_matmuls()
+    kf, n = pixels.shape[0], pixels.shape[1]
+    dtype, device = estimates.dtype, estimates.device
+    seg = torch.arange(kf - 1, dtype=dtype, device=device)
+    basis = torch.stack([torch.cos(np.pi * (m + 1) * (seg + 0.5) / (kf - 1)) for m in range(modes)])
+    if coefficients is None:
+        coefficients = torch.randn((num_hypotheses - 1, modes), generator=generator, dtype=dtype, device=device)
+    log_s = torch.cat([torch.zeros(1, kf - 1, dtype=dtype, device=device), (sigma * coefficients) @ basis])
+    masks = _vo_gauge_masks(kf, n)
+    obs = BAObservations(pixels=pixels, visibility=visibility)
+    refined, costs = [], []
+    for start in _rescale_segments(estimates, log_s):
+        poses = start
+        for _ in range(max(1, rounds)):
+            points = triangulate_points(poses, intrinsics, pixels, visibility)
+            poses = schur_ba_solve(
+                BAProblem(intrinsics=intrinsics, poses=poses, points=points), obs, solver, gauge_masks=masks
+            ).poses
+        points = triangulate_points(poses, intrinsics, pixels, visibility)
+        refined.append(poses)
+        costs.append(ba_cost(BAProblem(intrinsics=intrinsics, poses=poses, points=points), obs, solver))
+    return torch.stack(refined)[torch.argmin(torch.stack(costs))]
+
+
+def correct_scale_drift(
+    estimates: torch.Tensor,
+    intrinsics: torch.Tensor,
+    pixels: torch.Tensor,
+    visibility: torch.Tensor,
+    iterations: int = 30,
+) -> torch.Tensor:
+    """Remove accumulated window-scale drift from a stitched trajectory:
+    optimise the per-segment log-scales ``s_k`` of the camera-centre
+    increments (:func:`_rescale_segments`, rotations fixed) and nothing
+    else, scored by the reprojection cost of a DLT triangulation at the
+    rescaled poses, with the batched BFGS solver (a ``(K - 1)``-parameter
+    problem of batch 1: on the card its Hessian block is kernel K1 at
+    P = K - 1).  The cost's gradient is autograd through the
+    triangulation's solve.
+
+    :param estimates: ``(K, 6)`` stitched world->camera poses.
+    :return: ``(K, 6)`` poses with corrected per-segment scales.
+    """
+    from davo_tpu_torch.solve import BFGSConfig, bfgs_solve
+
+    full_f32_matmuls()
+    kf = estimates.shape[0]
+    vis = visibility.to(pixels.dtype)
+
+    def one(log_s):
+        poses = _rescale_segments(estimates, log_s)
+        points = triangulate_points(poses, intrinsics, pixels, visibility)
+        rel = torch.einsum("kij,nj->kni", so3_rotation_matrix(poses[:, 0:3]), points) + poses[:, None, 3:6]
+        z = torch.clamp(rel[..., 2], min=1e-3)
+        u = intrinsics[0] * rel[..., 0] / z + intrinsics[1]
+        v = intrinsics[0] * rel[..., 1] / z + intrinsics[2]
+        return torch.sum(torch.square((torch.stack([u, v], dim=-1) - pixels) * vis[..., None]))
+
+    solved = bfgs_solve(
+        lambda log_s_batch: torch.stack([one(row) for row in log_s_batch]),
+        torch.zeros(1, kf - 1, dtype=estimates.dtype, device=estimates.device),
+        BFGSConfig(iterations=iterations, error_threshold=0.0, minimum_step=1e-12, drop_path_p=0.0,
+                   line_search_iterations=20),
+    )
+    return _rescale_segments(estimates, solved[0])
+
+
+def refine_trajectory_host_f64(
+    estimates: torch.Tensor,
+    intrinsics: torch.Tensor,
+    pixels: torch.Tensor,
+    visibility: torch.Tensor,
+    solver: SchurConfig = SchurConfig(iterations=30, damping=1e-6),
+    rounds: int = 2,
+) -> torch.Tensor:
+    """Final float64 polish of a refined trajectory: one more
+    :func:`refine_trajectory_global` (``rounds`` of triangulation and
+    Schur BA) in float64, returned in the input dtype.
+
+    The Schur BA and the DLT triangulation form normal equations, so in
+    float32 their accuracy floor is about sqrt(eps); the global pose
+    system is small, so float64 removes that floor for little cost.  The
+    JAX package leaves the TPU for the host CPU here only because the TPU
+    has no float64; the H100 has it, so the port polishes on the
+    estimates' own device (the caller's) and keeps the JAX name.
+    """
+    vis = visibility.double() if visibility.is_floating_point() else visibility
+    polished = refine_trajectory_global(
+        estimates.double(), intrinsics.double(), pixels.double(), vis, solver=solver, rounds=rounds
+    )
+    return polished.to(estimates.dtype)
+
+
 def evaluate_learned_vo(
     guess_fn: Callable,
     generator: Optional[torch.Generator],
@@ -954,6 +1528,7 @@ def evaluate_learned_vo(
     refine_rounds: int = 1,
     host_polish: bool = False,
     multistart: int = 0,
+    stitch: str = "global",
     frontend_fn: Optional[Callable] = None,
     render_config: Optional[RenderConfig] = None,
     track_fn: Optional[Callable] = None,
@@ -971,31 +1546,41 @@ def evaluate_learned_vo(
     device=None,
     noise: Optional[dict] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Generate a sequence, run the learned VO (``pipeline="incremental"``),
-    optionally refine it globally, and report the similarity-aligned ATE
-    of the camera centres.
+    """Generate a sequence, run the learned VO (``pipeline="windows"``, the
+    default: every window solved by ``guess_fn`` in one stacked call and
+    the windows stitched by ``stitch``; or ``"incremental"``: a learned
+    bootstrap and the accumulator), refine it (``multistart`` scale-mode
+    hypotheses, else with ``refine`` one global refinement) and with
+    ``host_polish`` polish it in float64, and report the
+    similarity-aligned ATE of the camera centres.
 
     With ``frontend_fn`` the pipeline is image-based: the sequence is
-    rendered, the accumulator consumes the front end's whole-sequence
-    output (``track_fn`` or ``frontend_fn`` on all frames; with
-    ``detections_fn`` its raw detections and their probabilities), and
-    each bootstrap window is matched fresh by ``frontend_fn``.
+    rendered and the refinement (and the accumulator) consumes the front
+    end's whole-sequence tracks (``track_fn`` or ``frontend_fn`` on all
+    frames; with ``detections_fn`` the raw detections and their
+    probabilities); every window (or bootstrap window) is matched fresh
+    by ``frontend_fn``.
 
-    :param generator: draws the sequence, then its render (on the card
-        unless ``device`` says otherwise).
-    :param noise: ``{"trajectory": ..., "render": ...}`` draws to use
-        instead of the generator's (:func:`draw_trajectory_noise`,
-        :func:`draw_trajectory_render_noise`).
+    :param generator: draws the sequence, then its render, then the
+        multistart hypotheses (on the card unless ``device`` says
+        otherwise).
+    :param noise: ``{"trajectory": ..., "render": ..., "hypotheses": ...}``
+        draws to use instead of the generator's
+        (:func:`draw_trajectory_noise`, :func:`draw_trajectory_render_noise`,
+        the ``(multistart - 1, 4)`` standard normals of
+        :func:`refine_trajectory_multistart`).
+    :param debug_out: filled by the incremental pipeline (see
+        :func:`solve_learned_vo_incremental`) or, for the windows, with
+        the ``window_starts``, the ``window_poses``, the ``stitched``
+        trajectory, the observations (``pixels``, ``visibility``), the
+        ``intrinsics`` and the ``true_poses``.
     :return: ``rmse``, ``mean``, ``median`` and ``max`` of the ATE.
     """
-    if pipeline == "windows":
-        raise NotImplementedError(f"pipeline='windows' (per-window solves and stitching) {_NOT_PORTED}")
-    if pipeline != "incremental":
+    if pipeline not in ("windows", "incremental"):
         raise ValueError(f"unknown pipeline {pipeline!r}")
-    if multistart > 0:
-        raise NotImplementedError(f"multistart refinement {_NOT_PORTED}")
-    if host_polish:
-        raise NotImplementedError(f"the float64 host polish {_NOT_PORTED}")
+    if mesh is not None and refine and multistart == 0:
+        raise NotImplementedError("refine_trajectory_global(mesh=...): the distributed Schur BA is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 9)")
     full_f32_matmuls()
     device = resolve_device(device)
     noise = noise or {}
@@ -1009,41 +1594,266 @@ def evaluate_learned_vo(
         # learned global tracks replace the oracle observations downstream
         tracks, track_vis = (track_fn or frontend_fn)(images[None])
         pixels, visibility = tracks[0], track_vis[0]
-    detections = det_scores = det_descriptors = window_obs_fn = None
-    if detections_fn is not None and images is not None:
-        dets, dscores = detections_fn(images[None])
-        detections, det_scores = dets[0], dscores[0]
-        if descriptors_fn is not None and desc_weight > 0.0:
-            det_descriptors = descriptors_fn(images[None])[0]
-    if frontend_fn is not None:
-        # candidate bootstrap windows are matched fresh, anchored at their
-        # own first frame
-        def window_obs_fn(s):
-            return frontend_fn(images[s : s + config.window][None])
+    if pipeline == "incremental":
+        detections = det_scores = det_descriptors = window_obs_fn = None
+        if detections_fn is not None and images is not None:
+            dets, dscores = detections_fn(images[None])
+            detections, det_scores = dets[0], dscores[0]
+            if descriptors_fn is not None and desc_weight > 0.0:
+                det_descriptors = descriptors_fn(images[None])[0]
+        if frontend_fn is not None:
+            # candidate bootstrap windows are matched fresh, anchored at
+            # their own first frame
+            def window_obs_fn(s):
+                return frontend_fn(images[s : s + config.window][None])
 
-    estimates = solve_learned_vo_incremental(
-        guess_fn,
-        pixels,
-        visibility.to(pixels.dtype),
-        config,
-        irls_rounds=max(irls_rounds, 2),
-        detections=detections,
-        det_scores=det_scores,
-        window_obs_fn=window_obs_fn,
-        pnp_ransac=pnp_ransac,
-        chain_passes=chain_passes,
-        reject_outliers=reject_outliers,
-        ba_irls=ba_irls,
-        num_bootstraps=num_bootstraps,
-        det_descriptors=det_descriptors,
-        desc_weight=desc_weight,
-        debug_out=debug_out,
-    )
-    if refine:
-        intrinsics = torch.tensor([config.focal_length, 0.0, 0.0], dtype=estimates.dtype, device=estimates.device)
+        estimates = solve_learned_vo_incremental(
+            guess_fn,
+            pixels,
+            visibility.to(pixels.dtype),
+            config,
+            irls_rounds=max(irls_rounds, 2),
+            detections=detections,
+            det_scores=det_scores,
+            window_obs_fn=window_obs_fn,
+            pnp_ransac=pnp_ransac,
+            chain_passes=chain_passes,
+            reject_outliers=reject_outliers,
+            ba_irls=ba_irls,
+            num_bootstraps=num_bootstraps,
+            det_descriptors=det_descriptors,
+            desc_weight=desc_weight,
+            debug_out=debug_out,
+        )
+    else:
+        if stitch not in ("chain", "global", "robust"):
+            raise ValueError(f"unknown stitch mode {stitch!r}")
+        starts, window_poses = solve_learned_windows(
+            guess_fn, pixels, visibility, config, images=images, frontend_fn=frontend_fn, irls_rounds=irls_rounds
+        )
+        estimates = stitch_windows(starts, window_poses, pixels.shape[0], stitch)
+        if debug_out is not None:
+            debug_out.update(window_starts=starts, window_poses=window_poses, stitched=estimates, pixels=pixels,
+                             visibility=visibility, true_poses=poses)
+    intrinsics = torch.tensor([config.focal_length, 0.0, 0.0], dtype=estimates.dtype, device=estimates.device)
+    if debug_out is not None:
+        debug_out["intrinsics"] = intrinsics
+    if multistart > 0:
+        coefficients = noise.get("hypotheses")
+        if coefficients is None:
+            coefficients = torch.randn((multistart - 1, 4), generator=generator, dtype=estimates.dtype,
+                                       device=estimates.device)
+        estimates = refine_trajectory_multistart(
+            estimates, intrinsics, pixels, visibility, num_hypotheses=multistart, rounds=max(2, refine_rounds),
+            coefficients=coefficients,
+        )
+    elif refine:
         estimates = refine_trajectory_global(
             estimates, intrinsics, pixels, visibility, mesh=mesh, rounds=refine_rounds
         )
+    if host_polish:
+        estimates = refine_trajectory_host_f64(estimates, intrinsics, pixels, visibility)
+    est_centres = camera_centers_from_poses(estimates[:, 0:3], estimates[:, 3:6])
+    true_centres = camera_centers_from_poses(poses[:, 0:3], poses[:, 3:6])
+    return absolute_trajectory_error(est_centres, true_centres)
+
+
+def draw_observation_noise(
+    generator: torch.Generator,
+    num_frames: int,
+    num_points: int,
+    pixel_noise: bool = False,
+    dtype=torch.float32,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """The unit draws of :func:`observations_for_poses`: ``depths``
+    ``(N, 1)`` uniform in [0, 1), ``scatter`` ``(N, 3)`` standard normal
+    and, with ``pixel_noise``, ``pixels`` ``(K, N, 2)`` standard normal."""
+    noise = dict(
+        depths=torch.rand((num_points, 1), generator=generator, dtype=dtype, device=device),
+        scatter=torch.randn((num_points, 3), generator=generator, dtype=dtype, device=device),
+    )
+    if pixel_noise:
+        noise["pixels"] = torch.randn((num_frames, num_points, 2), generator=generator, dtype=dtype, device=device)
+    return noise
+
+
+def observations_for_poses(
+    poses: torch.Tensor,
+    intrinsics: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    num_points: int = 32,
+    depth_scale: float = 10.0,
+    pixel_noise: float = 0.0,
+    noise: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """Synthesise landmark observations along an arbitrary camera path.
+
+    Trajectory files carry no tracked features, so landmarks are placed
+    ahead of evenly spaced anchor frames (each in front of some camera, so
+    every window sees the landmarks anchored near it: forward-motion KITTI
+    paths work as well as orbits), at ``depth_scale`` median steps times
+    a uniform factor in [0.7, 1.6) and scattered by 0.35 of that depth,
+    and projected through every frame (plus ``pixel_noise`` times a
+    standard normal).  The draws come from ``generator`` or ``noise``
+    (:func:`draw_observation_noise`).
+
+    :param poses: ``(K, 6)`` world->camera.
+    :param intrinsics: ``(3,)`` ``(f, cx, cy)``.
+    :return: ``(points (N, 3), pixels (K, N, 2), visibility (K, N))``.
+    """
+    full_f32_matmuls()
+    kf = poses.shape[0]
+    rot = so3_rotation_matrix(poses[:, 0:3])  # (K, 3, 3)
+    centres = -torch.einsum("kji,kj->ki", rot, poses[:, 3:6])
+    forward = rot[:, 2, :]  # the camera z-axis in world coordinates
+    # the median step (linear interpolation: the mean of the middle two
+    # for an even count, as jnp.median)
+    step = torch.quantile(torch.linalg.vector_norm(centres[1:] - centres[:-1], dim=-1), 0.5)
+    depth = depth_scale * torch.clamp(step, min=1e-3)
+    anchor = torch.as_tensor(np.round(np.linspace(0.0, kf - 1.0, num_points)).astype(np.int64), device=poses.device)
+    if noise is None:
+        noise = draw_observation_noise(generator, kf, num_points, pixel_noise > 0.0, poses.dtype, poses.device)
+    depths = depth * torch.clamp(noise["depths"] * (1.6 - 0.7) + 0.7, min=0.7)
+    scatter = 0.35 * depth * noise["scatter"]
+    points = centres[anchor] + forward[anchor] * depths + scatter
+    rel = torch.einsum("kij,nj->kni", rot, points) + poses[:, None, 3:6]
+    z = torch.clamp(rel[..., 2], min=1e-8)
+    f, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2]
+    u = f * rel[..., 0] / z + cx
+    v = f * rel[..., 1] / z + cy
+    pixels = torch.stack([u, v], dim=-1)
+    if pixel_noise > 0.0:
+        pixels = pixels + pixel_noise * noise["pixels"]
+    visibility = (torch.abs(u) < 1.0) & (torch.abs(v) < 1.0) & (rel[..., 2] > 0.05 * depth)
+    return points, pixels, visibility
+
+
+def evaluate_vo_sequence_file(
+    path: str,
+    format: str = "tum",
+    config: TrajectoryConfig = TrajectoryConfig(),
+    generator: Optional[torch.Generator] = None,
+    intrinsics: Optional[torch.Tensor] = None,
+    max_frames: Optional[int] = None,
+    num_points: Optional[int] = None,
+    guess_fn: Optional[Callable] = None,
+    frontend_fn: Optional[Callable] = None,
+    render_config: Optional[RenderConfig] = None,
+    stitch: str = "global",
+    pipeline: str = "windows",
+    detections_fn: Optional[Callable] = None,
+    device=None,
+    noise: Optional[dict] = None,
+) -> Dict[str, torch.Tensor]:
+    """Windowed VO along a trajectory loaded from a file (TUM or KITTI).
+
+    The motion comes from the file; landmark observations are synthesised
+    along it (:func:`observations_for_poses`).  Without ``guess_fn`` the
+    oracle path runs (:func:`solve_windowed_vo`: chained Schur windows
+    from noisy priors, the known intrinsics); with it the learned
+    pipeline (``pipeline="windows"``: :func:`solve_windowed_vo_learned`;
+    ``"incremental"``: :func:`solve_learned_vo_incremental`), on the
+    oracle observations or, with ``frontend_fn``, on the front end's
+    matches in frames rendered along the file (``detections_fn`` gives
+    the incremental pipeline its raw detections).
+
+    :param generator: draws the landmarks, then the priors (oracle) or
+        the render (a generator seeded 0 on ``device`` when omitted).
+    :param device: the card unless the caller asks for the CPU; the
+        poses are ``config.dtype`` there.
+    :param noise: ``{"observations": ..., "priors": ..., "render": ...}``
+        draws to use instead of the generator's
+        (:func:`draw_observation_noise`, :func:`draw_window_prior_noise`,
+        :func:`draw_trajectory_render_noise`).
+    :return: the aligned ATE (``rmse``, ``mean``, ``median``, ``max``),
+        ``rpe_*`` at delta 1 and ``num_frames``.
+    """
+    from davo_tpu_torch.data.sequences import load_sequence
+
+    from .evaluation import relative_pose_error
+
+    if pipeline not in ("windows", "incremental"):
+        raise ValueError(f"unknown pipeline {pipeline!r}")
+    full_f32_matmuls()
+    device = resolve_device(device)
+    noise = noise or {}
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    seq = load_sequence(path, format, device=device, dtype=config.dtype)
+    poses = seq.poses if max_frames is None else seq.poses[:max_frames]
+    kf = poses.shape[0]
+    if kf < config.window:
+        raise ValueError(f"sequence has {kf} frames < window {config.window}")
+    if intrinsics is None:
+        intrinsics = (
+            seq.intrinsics
+            if seq.intrinsics is not None
+            else torch.tensor([config.focal_length, 0.0, 0.0], dtype=poses.dtype, device=device)
+        )
+    intrinsics = torch.as_tensor(intrinsics, dtype=poses.dtype, device=device)
+    n = num_points if num_points is not None else config.num_points
+    points, pixels, visibility = observations_for_poses(
+        poses, intrinsics, generator, num_points=n, noise=noise.get("observations")
+    )
+    seq_config = dataclasses.replace(config, num_frames=kf, num_points=n, focal_length=float(intrinsics[0]))
+    if guess_fn is None:
+        estimates = solve_windowed_vo(
+            poses, points, pixels, visibility, seq_config, generator, intrinsics=intrinsics, noise=noise.get("priors")
+        )
+    else:
+        images = None
+        if frontend_fn is not None:
+            images = render_trajectory_images(pixels, visibility, generator, render_config, noise=noise.get("render"))
+        if pipeline == "incremental":
+            detections = det_scores = window_obs_fn = None
+            obs_pixels, obs_vis = pixels, visibility.to(pixels.dtype)
+            if frontend_fn is not None:
+                tracks, track_vis = frontend_fn(images[None])
+                obs_pixels, obs_vis = tracks[0], track_vis[0].to(pixels.dtype)
+
+                def window_obs_fn(s):
+                    return frontend_fn(images[s : s + seq_config.window][None])
+
+                if detections_fn is not None:
+                    dets, dscores = detections_fn(images[None])
+                    detections, det_scores = dets[0], dscores[0]
+            estimates = solve_learned_vo_incremental(
+                guess_fn, obs_pixels, obs_vis, seq_config, detections=detections, det_scores=det_scores,
+                window_obs_fn=window_obs_fn,
+            )
+        else:
+            estimates = solve_windowed_vo_learned(
+                guess_fn, pixels, visibility, seq_config, stitch=stitch, images=images, frontend_fn=frontend_fn
+            )
+    est_centres = camera_centers_from_poses(estimates[:, 0:3], estimates[:, 3:6])
+    true_centres = camera_centers_from_poses(poses[:, 0:3], poses[:, 3:6])
+    metrics = absolute_trajectory_error(est_centres, true_centres)
+    metrics.update({f"rpe_{name}": value for name, value in relative_pose_error(estimates, poses).items()})
+    metrics["num_frames"] = torch.tensor(kf)
+    return metrics
+
+
+def evaluate_vo(
+    generator: Optional[torch.Generator],
+    config: TrajectoryConfig = TrajectoryConfig(),
+    device=None,
+    noise: Optional[dict] = None,
+) -> Dict[str, torch.Tensor]:
+    """Generate a sequence, run the oracle windowed VO
+    (:func:`solve_windowed_vo`) and report the aligned ATE.
+
+    :param generator: draws the sequence, then the priors (on the card
+        unless ``device`` says otherwise).
+    :param noise: ``{"trajectory": ..., "priors": ...}`` draws to use
+        instead of the generator's.
+    """
+    full_f32_matmuls()
+    device = resolve_device(device)
+    noise = noise or {}
+    trajectory_noise = noise.get("trajectory") or draw_trajectory_noise(generator, config, device)
+    poses, points, pixels, visibility = trajectory_from_noise(trajectory_noise, config)
+    estimates = solve_windowed_vo(poses, points, pixels, visibility, config, generator, noise=noise.get("priors"))
     est_centres = camera_centers_from_poses(estimates[:, 0:3], estimates[:, 3:6])
     true_centres = camera_centers_from_poses(poses[:, 0:3], poses[:, 3:6])
     return absolute_trajectory_error(est_centres, true_centres)

@@ -20,6 +20,9 @@ trajectory accuracy against the JAX package's, and the port's CLI.
   control flow and finite metrics; ``--solver lbfgs --lbfgs-history 5``
   converts the preset's solver as the JAX CLI's ``_apply_overrides``
   does and runs; the refusals of what is still not ported.
+* ``python -m davo_tpu_torch.cli vo-eval --platform cpu`` on its default
+  windows pipeline at a tiny size: stitching modes, multistart and the
+  float64 polish run, and the JAX CLI's lines come out.
 """
 
 import dataclasses
@@ -50,6 +53,7 @@ from davo_tpu_torch.train import calibration as tc
 from davo_tpu_torch.train import presets, restore_checkpoint
 from davo_tpu_torch.types import CameraViewsAndPoints
 from tests.test_torch_calibration_network import _kernel_function_objective
+from tests.test_torch_vo_incremental import tiny_checkpoint  # noqa: F401
 from tests.torch_port_helpers import torch_single_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -269,3 +273,19 @@ def test_checkpoint_and_preset_refusals(tmp_path):
         presets.get_preset("mlp_guess")
     with pytest.raises(KeyError):
         presets.get_preset("no_such_preset")
+
+
+def test_cli_vo_eval_windows_pipeline_on_the_cpu(tiny_checkpoint, capsys):
+    """``vo-eval``'s default pipeline at a tiny size (random tiny weights,
+    6 frames, 2 restarts): every window solved in one stacked call, then
+    robust stitching, 3 multistart hypotheses and the float64 polish; and
+    chain stitching without refinement.  A JSON line a trial, then the
+    mean, as the JAX CLI prints them."""
+    base = ["vo-eval", "--platform", "cpu", "--checkpoint", tiny_checkpoint, "--hidden-size", "16",
+            "--transformer-layers", "1", "--transformer-heads", "2", "--frames", "6", "--restarts", "2",
+            "--trials", "1"]
+    for extra in (("--stitch", "robust", "--multistart", "3", "--host-polish"), ("--stitch", "chain", "--no-refine")):
+        assert cli.main(base + list(extra)) == 0
+        lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+        assert set(lines[0]) == {"trial", "rmse", "mean", "median", "max"} and np.isfinite(lines[0]["rmse"])
+        assert lines[-1] == {"mean_ate_rmse": float(f"{lines[0]['rmse']:.6g}")}

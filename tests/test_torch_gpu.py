@@ -1,10 +1,12 @@
 """Kernels K1, K1′, K2, K3 and K4 on the card, against their plain PyTorch
 versions (also at vo-eval's shapes: K1 and K2 at a bootstrap solve's 8
-elements, K3 at 15 and 3 problems); one training step of the calibration
+elements, K3 at 15 and 3 problems; K1 at the windows pipeline's stacked
+56 elements and at correct_scale_drift's P = 15, B = 1); one training step of the calibration
 network and one of the front end on the card against the CPU's; the
 L-BFGS eval solve on the card (through K2) against the CPU's; and the
 incremental-VO accumulator on clean inputs, the card in float32 against
-the CPU in float64.
+the CPU in float64; and the windows pipeline's oracle-guess recovery on
+the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -78,6 +80,24 @@ def test_bfgs_update_kernel_at_the_bootstrap_batch(cuda_device):
     """vo-eval's bootstrap solve: one window x 8 restarts, B = 8 (one
     partial tile of the register route)."""
     h_t, s, y, grad, updating = _k1_inputs(8, 45)
+    on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
+    for first, second in FLAGS:
+        before = build.launch_counts["bfgs_update"]
+        k_h, k_d = k1.fused_bfgs_update_direction(*on_card, first, second)
+        torch.cuda.synchronize()
+        assert build.launch_counts["bfgs_update"] == before + 1
+        p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= 1e-4
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(1, 15), (56, 45)], ids=["scale_drift_p15_b1", "stacked_windows_p45_b56"])
+def test_bfgs_update_kernel_at_the_windows_shapes(cuda_device, b, p):
+    """The windows pipeline's shapes: correct_scale_drift's BFGS over the
+    15 segments of 16 frames (B = 1), and the 7 stacked windows x 8
+    restarts of a 16-frame sequence (B = 56)."""
+    h_t, s, y, grad, updating = _k1_inputs(b, p, seed=b)
     on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
     for first, second in FLAGS:
         before = build.launch_counts["bfgs_update"]
@@ -412,3 +432,15 @@ def test_incremental_vo_accumulator_on_the_card_matches_the_cpu(cuda_device):
     result = chip_smoke.vo_clean_accumulator(cuda_device)
     assert result["rotation_max_abs_err"] <= 1e-4 and result["translation_max_abs_err"] <= 1e-3
     assert result["ate_rmse_card"] < 5e-3
+
+
+@pytest.mark.gpu
+def test_windows_pipeline_recovers_oracle_windows_on_the_card(cuda_device):
+    """The windows pipeline on oracle guesses (each window's truth at its
+    own gauge scale, one stacked call), stitched (chain and global) and
+    refined on the card in float32: the refined ATE within 1e-4, the JAX
+    test's bound (chip_smoke.vo_windows_recovery)."""
+    import chip_smoke
+
+    result = chip_smoke.vo_windows_recovery(cuda_device)
+    assert result["chain"]["refined_ate"] <= 1e-4 and result["global"]["refined_ate"] <= 1e-4

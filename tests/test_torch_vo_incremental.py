@@ -274,18 +274,12 @@ def test_cli_vo_eval_descriptor_association_on_two_anchored_tracks(tiny_checkpoi
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (("--pipeline", "windows"), "item 10"),
-        (("--multistart", "4"), "item 10"),
-        (("--host-polish",), "item 10"),
         (("--matches", "learned", "--frontend-checkpoint", "artifacts/ckpt_frontend_v4"), "item 8"),
     ],
-    ids=["windows", "multistart", "host_polish", "orbax_frontend"],
+    ids=["orbax_frontend"],
 )
 def test_cli_vo_eval_refuses_what_is_not_ported(tiny_checkpoint, extra, match):
     args = _tiny_args(tiny_checkpoint, "--trials", "1")
-    if extra[0] == "--pipeline":
-        args = [a for a in args if a != "incremental"]
-        args.remove("--pipeline")
     with pytest.raises(NotImplementedError, match=match):
         cli.run(args + list(extra))
 

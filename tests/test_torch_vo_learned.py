@@ -107,8 +107,13 @@ def test_evaluate_learned_vo_from_jax_draws_matches_jax(monkeypatch):
 
 
 def test_evaluate_learned_vo_refuses_what_is_not_ported():
+    """The distributed refinement (``mesh=``) is refused before any work;
+    an unknown pipeline or stitch mode is an error (the windows pipeline,
+    multistart and the float64 polish run: ``test_torch_vo_windows.py``,
+    ``test_torch_vo_refine.py``)."""
     cfg = T.TrajectoryConfig(num_frames=FRAMES, num_points=POINTS)
-    for kwargs in (dict(pipeline="windows"), dict(pipeline="incremental", multistart=4),
-                   dict(pipeline="incremental", host_polish=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        T.evaluate_learned_vo(None, torch.Generator(), cfg, device="cpu", refine=True, mesh=object())
+    for kwargs, match in ((dict(pipeline="bundles"), "unknown pipeline"), (dict(stitch="median"), "unknown stitch")):
+        with pytest.raises(ValueError, match=match):
             T.evaluate_learned_vo(None, torch.Generator(), cfg, device="cpu", **kwargs)
