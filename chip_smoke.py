@@ -10,8 +10,10 @@ Phases, each printed as one JSON line with its seconds:
 3. k1, k2   each kernel against its plain PyTorch version on the card, at the
             serve shape (B = 8192, also 32 restarts of 256 scenes), the bench
             shape (B = 16384), the trainer's validation batch (B = 64),
-            vo-eval's bootstrap solve (B = 8), its stacked windows (B = 56) and
-            K1 at correct_scale_drift's P = 15, B = 1: error
+            vo-eval's bootstrap solve (B = 8), its stacked windows (B = 56),
+            K1 at correct_scale_drift's P = 15, B = 1, at the learned
+            solvers' comparison (B = 256) and at the gen-1 protocol solve's
+            P = 44, B = 64: error
             against the stated tolerance, time by CUDA events (``ms``: the
             wrapper's launches one by one from the host, as the solver makes
             them; ``graph_ms``: the same launches replayed from a CUDA graph,
@@ -134,7 +136,21 @@ Phases, each printed as one JSON line with its seconds:
             learned VO (v6_verified, 8 points, windows of 4, 1 restart, the
             front end with eval-seq's gates; K1-K3 launched) along the KITTI
             file;
-19. the kernels line (with each kernel's launches on every path that ran
+19. learned_solver  the trained MLP solver of
+            artifacts/learned_solver_descent_v2.pkl (hidden 256, 5 recurrent
+            steps) against BFGS at 5 and 20 iterations on 2 batches of 256
+            scenes (compare_with_bfgs: K1 at B = 256, P = 45), each row beside
+            learned_solver_descent3.log's table; one epoch of 8 batches of 256
+            of each solver type (MLP and transformer with the descent loss, the
+            direction gate inside the differentiable BFGS solve) beside the JAX
+            runs' first epoch; the trained gate's comparison (K1 with
+            direction_fn);
+20. gen1_train  one bfgs_solver_only_error_gradient train step on the card
+            against the CPU (float64 asserted, float32 reported), each gen-1
+            preset's steps at its batch (seconds a step, peak memory, losses
+            finite, no kernel), and the protocol solver on 64
+            PinholeCameraModelL1 objectives (K1 at P = 44) against the CPU;
+21. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -146,7 +162,9 @@ learned-match window path, K4 from the fused-objective entry points, K1'
 from the tuning sweep, K2 from the L-BFGS eval, K3 from the front end's
 validation (its train steps read 0), K1-K3 from the vo-eval trial,
 K1 and K2 from the windows trial, K1 from correct_scale_drift, K1-K3
-from the windows trial on learned matches and from eval-seq's learned VO.
+from the windows trial on learned matches and from eval-seq's learned VO,
+K1 from the learned solvers' comparisons and from the gen-1 protocol
+solve.
 """
 
 import itertools
@@ -315,9 +333,44 @@ EVAL_SEQ_CASES = {
                 V6_CHECKPOINT, *V6_WIDTH, "--points", "8", "--window", "4", "--restarts", "1", "--frontend-checkpoint",
                 FRONTEND_NPZ],
 }
+# the learned solvers: artifacts/learned_solver_descent_v2.pkl (the
+# recurrent MLP solver, hidden 256, 5 steps, trained with the descent loss)
+# against BFGS at 5 and 20 iterations (16 probes a line search) on 2
+# batches of 256 scenes: K1 at B = 256, P = 45; each row's objective and
+# the BFGS rows' basin rates within the band around
+# learned_solver_descent3.log's table (that checkpoint's TPU run, other
+# draws); then 1 epoch of 8 batches of 256 of each solver type from a
+# flax-style init beside the JAX runs' epoch 0 (direction and MLP with the
+# descent loss asserted; the focal error is heavy-tailed and only
+# reported); then the trained direction gate's comparison (K1 with
+# direction_fn)
+LEARNED_SOLVER_CHECKPOINT = os.path.join(REPO, "artifacts", "learned_solver_descent_v2.pkl")
+LEARNED_SOLVER_LOG = "learned_solver_descent3.log"
+LEARNED_SOLVER_BATCHES, LEARNED_SOLVER_DIRECTION_BATCHES = 2, 1
+LEARNED_SOLVER_TRAIN = dict(epochs=1, batches_per_epoch=8, batch_size=256)
+LEARNED_SOLVER_RUNS = {  # solver type: (loss mode, the JAX run's metrics, asserted)
+    "mlp": ("descent", "learned_solver_descent3_metrics.jsonl", True),
+    "transformer": ("descent", "learned_solver_transformer_r4.jsonl", False),
+    "direction": ("final", "learned_solver_direction_metrics.jsonl", True),
+}
+LEARNED_SOLVER_BAND = (0.6, 1.5)  # times the JAX figure
+# the gen-1 stack: one bfgs_solver_only_error_gradient train step on the
+# card against the CPU (a fixed batch of 16, relative error of the loss
+# and metrics, normwise of the gradients; asserted in float64, as
+# train_check, and reported in float32, where rounding flips the unrolled
+# solve's line-search decisions: 1.2e-5 to 1.9e-3 on the loss and 3.6e-2
+# to 9.3e-2 on the gradients, card against CPU, on an H100), then each preset's
+# steps at its own batch (the two unrolled-BFGS presets at 64, mlp_guess at
+# 256 with hidden 2,048), then the protocol solver (bfgs_solve_function)
+# on 64 PinholeCameraModelL1 objectives of 4 views x 8 points: K1 at P =
+# 3 + 6 M + 3 N - 7 = 44, the card against the CPU
+GEN1_CHECK_BATCH, GEN1_CHECK_TOL = 16, 1e-8
+GEN1_STEPS = {"bfgs_solver_full_gradient": 4, "bfgs_solver_only_error_gradient": 4, "mlp_guess": 12}
+GEN1_P, GEN1_SOLVE_SCENES = 3 + 6 * M + 3 * N - 7, 64
 # the paths whose launch counts the kernels line reports
 LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval",
-                "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned")
+                "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned", "learned_solver",
+                "learned_solver_direction", "gen1_protocol_solve")
 
 
 def emit(phase, **fields):
@@ -2109,6 +2162,263 @@ def eval_seq_phase(device):
     return out
 
 
+# ------------------------------------------------- learned solvers ----
+
+
+def jax_metrics_epoch(log, epoch=0):
+    """The ``train`` record of ``epoch`` in one of the JAX runs' metrics
+    files (JSON lines; the first may be the run's record)."""
+    with open(os.path.join(REPO, "artifacts", log)) as f:
+        for line in f:
+            record = json.loads(line)
+            if record.get("split") == "train" and record.get("epoch") == epoch:
+                return record
+    raise KeyError(f"no train record of epoch {epoch} in {log}")
+
+
+def within_band(name, value, reference, band=LEARNED_SOLVER_BAND):
+    if not (math.isfinite(value) and band[0] * reference <= value <= band[1] * reference):
+        raise AssertionError(f"{name}: {value} is outside {band} x the JAX figure {reference}")
+    return dict(value=value, jax=reference, ratio=value / reference)
+
+
+def timed_comparison(device, network, config, batches):
+    """compare_with_bfgs with K1's launches counted from 0 just before it."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import compare_with_bfgs
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    start = time.perf_counter()
+    table = compare_with_bfgs(network, config, config.seed + 1, batches, device=device)
+    torch.cuda.synchronize()
+    return dict(table=table, batches=batches, scenes=batches * config.batch_size,
+                seconds=time.perf_counter() - start, launches=dict(build.launch_counts))
+
+
+def learned_solver_phase(device):
+    """The trained MLP solver against BFGS (K1 at B = 256, P = 45) beside
+    the JAX table; one short epoch of each solver type beside the JAX runs'
+    first; the trained direction gate's comparison (K1 with
+    direction_fn)."""
+    import dataclasses
+
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import fit_learned_solver, load_learned_solver
+
+    network, config = load_learned_solver(LEARNED_SOLVER_CHECKPOINT, device=device)
+    comparison = timed_comparison(device, network, config, LEARNED_SOLVER_BATCHES)
+    jax_table = jax_reference(LEARNED_SOLVER_LOG)["comparison"]
+    bands = {f"{row} objective": within_band(f"learned_solver {row} objective", comparison["table"][row]["objective"],
+                                             jax_table[row]["objective"]) for row in jax_table}
+    for row in ("bfgs_equal_budget", "bfgs_4x_budget"):
+        bands[f"{row} basin_rate"] = within_band(f"learned_solver {row} basin_rate",
+                                                 comparison["table"][row]["basin_rate"], jax_table[row]["basin_rate"])
+    if not comparison["launches"]["bfgs_update"] > 0:
+        raise AssertionError(f"learned_solver: K1 was never launched ({comparison['launches']})")
+    comparison.update(bands=bands, jax_table=jax_table)
+
+    training, trained = {}, {}
+    for solver_type, (loss_mode, log, asserted) in LEARNED_SOLVER_RUNS.items():
+        train_config = dataclasses.replace(config, solver_type=solver_type, loss_mode=loss_mode,
+                                           **LEARNED_SOLVER_TRAIN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        start = time.perf_counter()
+        state, history = fit_learned_solver(train_config, device=device)
+        trained[solver_type] = (state.network, train_config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        row = history["train"][0]
+        reference = jax_metrics_epoch(log)
+        training[solver_type] = dict(
+            loss_mode=loss_mode, final_error=row["final_error"], start_error=row["start_error"], loss=row["loss"],
+            seconds_per_step=seconds / train_config.batches_per_epoch, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=dict(build.launch_counts), jax_epoch0_final_error=reference["final_error"],
+            jax_epoch0_start_error=reference["start_error"],
+        )
+        if not all(math.isfinite(row[k]) for k in ("final_error", "start_error", "loss")):
+            raise AssertionError(f"learned_solver {solver_type}: not finite {row}")
+        if any(build.launch_counts.values()):  # the training solves are differentiable: no kernel
+            raise AssertionError(f"learned_solver {solver_type}: training launched {dict(build.launch_counts)}")
+        if asserted:
+            training[solver_type]["band"] = within_band(f"learned_solver {solver_type} final_error",
+                                                        row["final_error"], reference["final_error"])
+    gated = timed_comparison(device, *trained["direction"], LEARNED_SOLVER_DIRECTION_BATCHES)
+    if not gated["launches"]["bfgs_update"] > 0:
+        raise AssertionError(f"learned_solver direction: K1 was never launched ({gated['launches']})")
+    return dict(comparison=comparison, launches=comparison["launches"], training=training, direction=gated)
+
+
+# ------------------------------------------------------------ gen-1 ----
+
+
+def gen1_objective(batch=GEN1_SOLVE_SCENES, seed=8, device="cpu"):
+    """``batch`` gen-1 objectives (E = 1, 4 views x 8 points) on generated
+    scenes' observations, from a start of focal about 1, principal point
+    0, cameras 5 units back and points 2 to 2.5 units ahead, drawn on the
+    CPU and moved to ``device``."""
+    from davo_tpu_torch.camera import PinholeBAConfig, PinholeBAData, PinholeBAParams, PinholeCameraModelL1
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+
+    scenes = generate_batch(torch.Generator().manual_seed(seed), batch, SceneConfig(num_views=M, num_points=N),
+                            device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    translation = 0.3 * torch.randn(batch, 1, M, 3, generator=g)
+    translation[..., 2] += 5.0
+    points = torch.cat([0.5 * torch.randn(batch, 1, N - 2, 2, generator=g),
+                        2.0 + 0.5 * torch.rand(batch, 1, N - 2, 1, generator=g)], dim=-1)
+    params = PinholeBAParams(
+        focal_length=1.0 + 0.1 * torch.randn(batch, 1, generator=g), cx=torch.zeros(batch, 1),
+        cy=torch.zeros(batch, 1), translation=translation, orientation=0.1 * torch.randn(batch, 1, M, 3, generator=g),
+        world_points=points,
+    )
+    data = PinholeBAData(scenes.projected_points[:, None], scenes.visibility_mask[:, None])
+    return PinholeCameraModelL1(PinholeBAParams(*(x.to(device) for x in params)),
+                                PinholeBAData(*(x.to(device) for x in data)), PinholeBAConfig(constrain=True))
+
+
+def gen1_protocol_solve(device):
+    """bfgs_solve_function on GEN1_SOLVE_SCENES objectives on the card
+    (launches counted from 0 just before it) and on the CPU: the share of
+    solved parameter vectors that agree to 1e-3 normwise (a Wolfe decision
+    that float32 rounding flips sends an element down another path), the
+    share of objectives each lowers, the mean objective before and
+    after."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.solve import bfgs_solve_function
+
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        model = gen1_objective(device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        build.reset_launch_counts()
+        start = time.perf_counter()
+        solved = bfgs_solve_function(model)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        before, after = model.get_error(), solved.get_error()
+        out[dev.type] = dict(
+            seconds=time.perf_counter() - start, launches=dict(build.launch_counts),
+            mean_objective_start=float(before.mean()), mean_objective_solved=float(after.mean()),
+            share_lowered=float((after <= before).float().mean()),
+            vector=solved.as_parameters_vector().reshape(GEN1_SOLVE_SCENES, -1).cpu(),
+        )
+    card, cpu = out["cuda"].pop("vector"), out["cpu"].pop("vector")
+    diff = (card - cpu).abs().amax(dim=1) / cpu.abs().amax(dim=1).clamp(min=1.0)
+    return dict(scenes=GEN1_SOLVE_SCENES, p=GEN1_P, card=out["cuda"], cpu=out["cpu"],
+                share_agreeing_1e3=float((diff <= 1e-3).float().mean()), launches=out["cuda"]["launches"])
+
+
+def gen1_step_on(device, config, batch):
+    """One gen-1 train step of ``config`` from its flax-style weights on
+    ``batch``: the metrics and the gradients (on the CPU); no kernel may
+    launch (the training solve is differentiable)."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import create_optimisation_state, make_optimisation_train_step
+    from davo_tpu_torch.types import CameraViewsAndPoints
+
+    state = create_optimisation_state(config, device)
+    seen = {}
+    apply = state.apply_gradients
+
+    def recording_apply(gradients):
+        seen["grads"] = [g.detach().cpu().double().clone() for g in gradients]  # apply clips in place
+        apply(gradients)
+
+    state.apply_gradients = recording_apply
+    build.reset_launch_counts()
+    moved = CameraViewsAndPoints(*(x.to(device, config.dtype) if x.is_floating_point() else x.to(device)
+                                   for x in batch))
+    metrics = make_optimisation_train_step(state, config)(batch=moved)
+    if any(build.launch_counts.values()):
+        raise AssertionError(f"gen1 train_check: the train step launched {dict(build.launch_counts)}")
+    return {k: float(v) for k, v in metrics.items()}, seen["grads"]
+
+
+def gen1_train_check(device):
+    """One bfgs_solver_only_error_gradient train step (hidden 256, a
+    5-iteration unrolled solve on the analytic gradient) on the card and
+    on the CPU from the same flax-style weights and the same batch of
+    GEN1_CHECK_BATCH scenes: the loss and metrics relative to themselves,
+    the gradients normwise over the network (2-norm).  In float64 each
+    within GEN1_CHECK_TOL; in float32 reported only: rounding flips the
+    unrolled solve's line-search decisions (on the CPU alone, float32
+    against float64 read 2.6e-4 on the loss and 1.3e-2 on the
+    gradients)."""
+    import dataclasses
+
+    from davo_tpu_torch.data import generate_batch
+    from davo_tpu_torch.train import get_preset
+
+    config = dataclasses.replace(get_preset("bfgs_solver_only_error_gradient"), batch_size=GEN1_CHECK_BATCH)
+    batch = generate_batch(torch.Generator().manual_seed(9), GEN1_CHECK_BATCH,
+                           dataclasses.replace(config.resolved_scene(), dtype=torch.float64), device="cpu")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        typed = dataclasses.replace(config, dtype=dtype)
+        (metrics, grads), (cpu_metrics, cpu_grads) = (gen1_step_on(dev, typed, batch)
+                                                      for dev in (device, torch.device("cpu")))
+        checks = {name: relative_error(metrics[name], value) for name, value in cpu_metrics.items()}
+        err = math.sqrt(sum(float(torch.sum((a - b) ** 2)) for a, b in zip(grads, cpu_grads)))
+        ref = math.sqrt(sum(float(torch.sum(b ** 2)) for b in cpu_grads))
+        checks["gradients_normwise"] = err / ref
+        out[str(dtype).replace("torch.", "")] = dict(checks=checks, loss_card=metrics["loss"],
+                                                     loss_cpu=cpu_metrics["loss"], gradient_norm_cpu=ref)
+    failed = {k: v for k, v in out["float64"]["checks"].items() if not v <= GEN1_CHECK_TOL}
+    if failed:
+        raise AssertionError(f"gen1 train_check: float64 beyond {GEN1_CHECK_TOL}: {failed}")
+    return dict(batch=GEN1_CHECK_BATCH, tolerance_float64=GEN1_CHECK_TOL, **out)
+
+
+def gen1_train_phase(device):
+    """The card-against-CPU step, each gen-1 preset's steps at its own
+    batch (losses finite, seconds a step, peak memory, no kernel), and the
+    protocol solve (K1 at P = 44)."""
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.train import batch_generator, create_optimisation_state, get_preset
+    from davo_tpu_torch.train import make_optimisation_train_step
+
+    check = gen1_train_check(device)
+    presets = {}
+    for name, steps in GEN1_STEPS.items():
+        config = get_preset(name)
+        state = create_optimisation_state(config, device)
+        train_step = make_optimisation_train_step(state, config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        losses, seconds = [], []
+        for i in range(steps):
+            start = time.perf_counter()
+            metrics = train_step(batch_generator(device, config.seed, 0, 0, i))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+            losses.append(float(metrics["loss"]))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"gen1 {name}: non-finite losses {losses}")
+        if any(build.launch_counts.values()):
+            raise AssertionError(f"gen1 {name}: the train steps launched {dict(build.launch_counts)}")
+        hidden = config.hidden_size if config.hidden_size > 0 else 8 * config.num_views * config.num_points
+        presets[name] = dict(steps=steps, batch=config.batch_size, hidden=hidden,
+                             solver_iterations=config.solver.iterations if config.solver_enabled else 0,
+                             losses=losses, first_step_s=seconds[0], median_step_s=sorted(seconds)[len(seconds) // 2],
+                             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del state, train_step
+        torch.cuda.empty_cache()
+    solve = gen1_protocol_solve(device)
+    if not solve["launches"]["bfgs_update"] > 0:
+        raise AssertionError(f"gen1 protocol solve: K1 was never launched ({solve['launches']})")
+    if any(solve["cpu"]["launches"].values()):
+        raise AssertionError(f"gen1 protocol solve: the CPU solve launched {solve['cpu']['launches']}")
+    if not (solve["share_agreeing_1e3"] >= 0.9 and solve["card"]["mean_objective_solved"]
+            < solve["card"]["mean_objective_start"]):
+        raise AssertionError(f"gen1 protocol solve: card against CPU {solve}")
+    return dict(train_check=check, presets=presets, protocol_solve=solve)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2145,6 +2455,8 @@ def main():
         ("k1_vo_f32", lambda: k1_phase(VO_BATCH, torch.float32, device)),
         ("k1_vo_windows_f32", lambda: k1_phase(VO_WINDOWS_BATCH, torch.float32, device)),
         ("k1_vo_drift_f32", lambda: k1_phase(VO_DRIFT_BATCH, torch.float32, device, p=VO_DRIFT_P)),
+        ("k1_learned_solver", lambda: k1_phase(256, torch.float32, device)),
+        ("k1_gen1", lambda: k1_phase(GEN1_SOLVE_SCENES, torch.float32, device, p=GEN1_P)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
         ("k2_val", lambda: k2_phase(VAL_BATCH, device)),
@@ -2196,6 +2508,8 @@ def main():
         ("vo_eval", lambda: vo_eval_phase(device)),
         ("vo_windows", lambda: vo_windows_phase(device)),
         ("eval_seq", lambda: eval_seq_phase(device)),
+        ("learned_solver", lambda: learned_solver_phase(device)),
+        ("gen1_train", lambda: gen1_train_phase(device)),
     ):
         t0 = time.perf_counter()
         paths[label] = fn()
@@ -2204,6 +2518,8 @@ def main():
     paths["vo_windows_scale_drift"] = paths["vo_windows"]["scale_drift"]
     paths["vo_windows_learned"] = paths["vo_windows"]["learned_matches"]
     paths["eval_seq_learned"] = paths["eval_seq"]["learned"]
+    paths["learned_solver_direction"] = paths["learned_solver"]["direction"]
+    paths["gen1_protocol_solve"] = paths["gen1_train"]["protocol_solve"]
 
     # launches: each kernel's count on the path that drives it, counted
     # from 0 just before the path and read just after: K1-K3 on the

@@ -1,5 +1,6 @@
 """Command-line entry of the port (the ``fit``, ``eval``, ``fit-frontend``,
-``vo-eval`` and ``eval-seq`` subcommands of ``davo_tpu/cli.py``).
+``fit-learned-solver``, ``vo-eval`` and ``eval-seq`` subcommands of
+``davo_tpu/cli.py``).
 
     python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
         --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
@@ -8,8 +9,12 @@
         --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8 \\
         [--restart-proposals noise|permutation|input_noise|tokens] [--selection error|basin] \\
         [--basin-anchor W] [--guess-tokens E] [--solver lbfgs [--lbfgs-history M]]
+    python -m davo_tpu_torch.cli fit --preset bfgs_solver_full_gradient | bfgs_solver_only_error_gradient \\
+        | mlp_guess --epochs 5 --checkpoint-dir <dir>
     python -m davo_tpu_torch.cli fit-frontend --image-size 96 --epochs 600 \\
         --checkpoint-dir <dir> --metrics-file <file.jsonl>
+    python -m davo_tpu_torch.cli fit-learned-solver --solver-type mlp|transformer|direction \\
+        [--loss-mode final|descent] --epochs 20 [--checkpoint-file <file.pkl>]
     python -m davo_tpu_torch.cli vo-eval --checkpoint <weights.pkl> --hidden-size 384 \\
         --transformer-layers 8 --transformer-heads 8 [--stitch global|robust|chain] \\
         [--multistart H] [--host-polish] [--no-refine] --trials 3
@@ -26,6 +31,13 @@ which a later ``fit`` resumes from), prints a JSON line per split and
 epoch (also appended to ``--metrics-file``), the path of the final
 checkpoint (``checkpoint_<global epochs>.pkl``, which ``eval`` and the JAX
 package's ``restore_checkpoint`` read) and ``{"final_val": ...}`` last.
+On a gen-1 preset (``bfgs_solver_*``, ``mlp_guess``: the MLP guess with
+the analytic-gradient BFGS unrolled in training, or alone) ``fit`` trains
+it (``train/optimisation.py``), prints a ``train`` line an epoch, saves
+``{"params", "batch_stats"}`` in the flax names as
+``checkpoint_<epochs>.pkl`` in ``--checkpoint-dir`` and prints
+``{"final_train": ...}`` last; ``eval`` refuses such a preset with exit
+code 2, as the JAX CLI does.
 ``eval`` builds the preset's network (flax-style random weights from
 ``--seed`` unless ``--checkpoint-dir`` names a checkpoint), solves
 ``--batches`` batches of ``--batch-size`` scenes for the eval metrics and
@@ -39,7 +51,12 @@ the visual front end (``train/frontend.py::fit_frontend``), prints a JSON
 line per split and epoch, saves ``{"params", "batch_stats"}`` at step
 ``epochs`` in ``--checkpoint-dir`` with its ``frontend_config.json``
 (which ``models/convert.py::load_frontend`` and the JAX package read),
-and prints ``{"final": ...}`` last.  ``vo-eval`` runs the learned VO
+and prints ``{"final": ...}`` last.  ``fit-learned-solver`` trains a
+learned solver on the calibration objective (``train/learned_solver.py``),
+prints a ``train`` line an epoch, pickles ``{"params", "batch_stats",
+"config"}`` to ``--checkpoint-file`` (numpy arrays and plain types, which
+either package reads), then compares it with BFGS on 8 batches (seed
+``--seed + 1``) and prints ``{"comparison": ...}`` last.  ``vo-eval`` runs the learned VO
 (``train/vo_eval.py::evaluate_learned_vo``) on ``--trials`` synthetic
 sequences: by default the windows pipeline (every window solved by the
 curriculum preset's eval solver, all windows in one stacked call, then
@@ -109,11 +126,11 @@ def _apply_overrides(config, args):
     for field in ("epochs", "batch_size", "batches_per_epoch", "val_batches", "seed", "head", "learning_rate",
                   "hidden_size", "transformer_layers", "transformer_heads", "guess_tokens"):
         value = getattr(args, field, None)
-        if value is not None:
+        if value is not None and hasattr(config, field):
             updates[field] = value
     if updates:
         config = dataclasses.replace(config, **updates)
-    if getattr(args, "solver", None) == "lbfgs":
+    if getattr(args, "solver", None) == "lbfgs" and hasattr(config, "solver"):
         from davo_tpu_torch.solve import LBFGSConfig
 
         # the fields the two configs share carry over; the memory from the flag
@@ -178,9 +195,88 @@ def _build_parser() -> argparse.ArgumentParser:
     fe_p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
     fe_p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
     fe_p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
+    _add_fit_learned_solver(sub)
     _add_vo_eval(sub)
     _add_eval_seq(sub)
     return parser
+
+
+def _add_fit_learned_solver(sub) -> None:
+    """``fit-learned-solver``'s flags, as the JAX CLI's."""
+    p = sub.add_parser(
+        "fit-learned-solver",
+        help="train an MLP/transformer learned solver on the calibration objective and compare against BFGS at "
+        "equal step budget",
+    )
+    p.add_argument("--solver-type", default="mlp", choices=("mlp", "transformer", "direction"),
+                   help="mlp/transformer: learned update rule; direction: train the SearchDirectionHeuristic gate "
+                   "inside the real BFGS solve")
+    p.add_argument("--loss-mode", default=None, choices=("final", "descent"),
+                   help="final-objective loss, or per-step descent-aligned loss")
+    p.add_argument("--steps", type=int, default=None, help="solver steps")
+    for flag, kind in (("--epochs", int), ("--batch-size", int), ("--batches-per-epoch", int),
+                       ("--hidden-size", int), ("--learning-rate", float), ("--start-noise", float),
+                       ("--seed", int)):
+        p.add_argument(flag, type=kind, default=None)
+    p.add_argument("--no-recurrent", action="store_true")
+    p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
+    p.add_argument("--checkpoint-file", default=None, help="pickle the trained solver state here")
+    p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
+    p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
+
+
+def _fit_learned_solver(args, device, logger) -> dict:
+    """``fit-learned-solver``: train, optionally pickle, compare with BFGS."""
+    import pickle
+
+    from davo_tpu_torch.train import LearnedSolverExperiment, compare_with_bfgs, fit_learned_solver
+    from davo_tpu_torch.train.learned_solver import learned_solver_checkpoint
+
+    config = LearnedSolverExperiment(solver_type=args.solver_type)
+    updates = {}
+    for cli_name, field in (
+        ("steps", "num_steps"), ("epochs", "epochs"), ("batch_size", "batch_size"),
+        ("batches_per_epoch", "batches_per_epoch"), ("hidden_size", "hidden_size"),
+        ("learning_rate", "learning_rate"), ("start_noise", "start_noise"), ("seed", "seed"),
+    ):
+        value = getattr(args, cli_name)
+        if value is not None:
+            updates[field] = value
+    if args.no_recurrent:
+        updates["recurrent"] = False
+    if args.loss_mode:
+        updates["loss_mode"] = args.loss_mode
+    config = dataclasses.replace(config, **updates)
+    state, _ = fit_learned_solver(config, log_fn=logger, device=device)
+    if args.checkpoint_file:
+        with open(args.checkpoint_file, "wb") as f:
+            pickle.dump(learned_solver_checkpoint(state.network, config), f)
+    return {"comparison": compare_with_bfgs(state.network, config, config.seed + 1, device=device)}
+
+
+class _Refused(NotImplementedError):
+    """A request the JAX CLI does not implement either: :func:`main` prints
+    the message and returns the JAX CLI's exit code."""
+
+    def __init__(self, message: str, code: int = 2):
+        super().__init__(message)
+        self.code = code
+
+
+def _fit_gen1(args, config, device, logger) -> dict:
+    """A gen-1 preset: ``fit`` only (the JAX CLI's route)."""
+    from davo_tpu_torch.models.convert import flax_tree_from_state_dict
+    from davo_tpu_torch.train import fit_optimisation, save_checkpoint
+
+    if args.command != "fit":
+        raise _Refused(f"preset {args.preset!r} supports 'fit' only")
+    state, history = fit_optimisation(config, log_fn=logger, device=device)
+    if args.checkpoint_dir:
+        params, batch_stats = flax_tree_from_state_dict(state.network.state_dict())
+        path = save_checkpoint(args.checkpoint_dir, len(history["train"]),
+                               {"params": params, "batch_stats": batch_stats})
+        print(f"checkpoint: {path}", flush=True)
+    return {"final_train": history["train"][-1]}
 
 
 def _add_vo_eval(sub) -> None:
@@ -479,6 +575,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = _build_parser().parse_args(argv)
     from davo_tpu_torch.models import load_flax_weights
     from davo_tpu_torch.train import (
+        CalibrationExperiment,
         MetricsLogger,
         batch_generator,
         evaluate_calibration_ate,
@@ -500,7 +597,11 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir)
     if args.command == "fit-frontend":
         return _fit_frontend(args, device, logger)
+    if args.command == "fit-learned-solver":
+        return _fit_learned_solver(args, device, logger)
     config = _apply_overrides(get_preset(args.preset), args)
+    if not isinstance(config, CalibrationExperiment):
+        return _fit_gen1(args, config, device, logger)
 
     if args.command == "fit":
         _, history = fit(config, log_fn=logger, checkpoint_dir=args.checkpoint_dir, device=device)
@@ -529,7 +630,12 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    print(json.dumps(run(argv)), flush=True)
+    try:
+        result = run(argv)
+    except _Refused as refused:
+        print(refused, file=sys.stderr)
+        return refused.code
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -8,6 +8,7 @@ from .so3 import (
     skew_matrix,
     so3_parameter_jacobian,
     so3_rotation_matrix,
+    wrap_axis_angle,
 )
 
 __all__ = [
@@ -20,4 +21,5 @@ __all__ = [
     "skew_matrix",
     "so3_parameter_jacobian",
     "so3_rotation_matrix",
+    "wrap_axis_angle",
 ]

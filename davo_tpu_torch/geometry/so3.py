@@ -9,10 +9,15 @@ so values and derivatives are finite at the identity.  The matrix to
 axis-angle conversion serves the synthetic scene generator; the rotation
 matrix serves the trajectory metrics (:mod:`davo_tpu_torch.train.evaluation`);
 the parameter Jacobian serves the Schur bundle adjustment and PnP
-(:mod:`davo_tpu_torch.parallel.schur`, :mod:`davo_tpu_torch.train.vo_eval`).
+(:mod:`davo_tpu_torch.parallel.schur`, :mod:`davo_tpu_torch.train.vo_eval`)
+and the gen-1 bundle adjustment's analytic gradient
+(:mod:`davo_tpu_torch.camera.pinhole_ba`), whose constrained step wraps
+the angle with :func:`wrap_axis_angle`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,6 +31,7 @@ __all__ = [
     "axis_angle_from_quaternion",
     "quaternion_from_matrix",
     "axis_angle_from_matrix",
+    "wrap_axis_angle",
 ]
 
 
@@ -154,3 +160,12 @@ def quaternion_from_matrix(matrix: torch.Tensor) -> torch.Tensor:
 def axis_angle_from_matrix(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrix to so(3) vector (via quaternions, branch-free)."""
     return axis_angle_from_quaternion(quaternion_from_matrix(matrix))
+
+
+def wrap_axis_angle(axis_angle: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """The axis-angle vector with its angle wrapped into ``[-pi, pi)``
+    (floored modulo, as ``jnp.mod``: ``torch.remainder``, not ``fmod``)."""
+    angle = torch.linalg.vector_norm(axis_angle, dim=-1, keepdim=True)
+    axis = axis_angle / torch.clamp(angle, min=eps)
+    wrapped = torch.remainder(angle + math.pi, 2.0 * math.pi) - math.pi
+    return wrapped * axis

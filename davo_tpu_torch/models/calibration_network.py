@@ -81,21 +81,27 @@ class _FlaxBatchNorm(nn.BatchNorm1d):
     batch mean and biased variance ``E[x^2] - E[x]^2`` (floored at 0) and
     move the running statistics by ``m * running + (1 - m) * batch`` with
     m = 0.99 on that same biased variance (torch's own update uses the
-    unbiased one and the opposite momentum)."""
+    unbiased one and the opposite momentum).  ``affine=False`` is flax's
+    BatchNorm without scale and bias."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=_BATCH_NORM_EPS)
+    def __init__(self, num_features: int, affine: bool = True):
+        super().__init__(num_features, eps=_BATCH_NORM_EPS, affine=affine)
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        """Normalise the last axis of ``x`` (the statistics reduce over
+        every other axis, as flax's do)."""
         if not training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean = torch.mean(x, dim=0)
-            var = torch.clamp(torch.mean(torch.square(x), dim=0) - torch.square(mean), min=0.0)
+            dims = tuple(range(x.ndim - 1))
+            mean = torch.mean(x, dim=dims)
+            var = torch.clamp(torch.mean(torch.square(x), dim=dims) - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = _BATCH_NORM_MOMENTUM
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
                 self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+        if self.weight is None:  # flax use_scale=False, use_bias=False
+            return (x - mean) * torch.rsqrt(var + self.eps)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
@@ -211,7 +217,9 @@ def flax_style_init_(module: nn.Module, generator: Optional[torch.Generator] = N
     and the attention's per-head projections have fan_in = d, as their
     flattened ``Linear`` weights do; kh * kw * cin for a convolution),
     normal(0.02) embeddings and readout tokens, unit scales and zero
-    offsets on the norms, BatchNorm running statistics 0 and 1.
+    offsets on the norms, BatchNorm running statistics 0 and 1; a module
+    listing ``flax_normal_parameters`` (``(name, std)`` pairs) has those
+    parameters drawn from ``normal(std)``.
     ``generator`` (a CPU generator) draws on the CPU; the values are then
     copied to the module's device."""
     for sub in module.modules():
@@ -223,14 +231,19 @@ def flax_style_init_(module: nn.Module, generator: Optional[torch.Generator] = N
             if sub.bias is not None:
                 sub.bias.zero_()
         elif isinstance(sub, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
-            sub.weight.fill_(1.0)
-            sub.bias.zero_()
+            if sub.weight is not None:
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
             if not isinstance(sub, nn.LayerNorm):
                 sub.reset_running_stats()
         elif isinstance(sub, CalibrationTransformerHead):
             for embedding in (sub.view_embedding, sub.point_embedding, sub.readout_token):
                 draw = torch.randn(embedding.shape, generator=generator, dtype=torch.float64)
                 embedding.copy_(_EMBEDDING_STD * draw)
+        # a module's own normal-initialised parameters: (name, std) pairs
+        for name, std in getattr(sub, "flax_normal_parameters", ()):
+            parameter = getattr(sub, name)
+            parameter.copy_(std * torch.randn(parameter.shape, generator=generator, dtype=torch.float64))
     return module
 
 

@@ -27,7 +27,21 @@ and ``_v2_600.pkl``) name only those; the pickles of JAX arrays
 (``_v3_1200.pkl``, ``_v4_1800.pkl``, ...) name one more global,
 ``jax._src.array._reconstruct_array``, which is read as a numpy stand-in:
 it rebuilds the array from its numpy reconstructor and state, as JAX does
-before placing the array on a device.  Any other global is refused.
+before placing the array on a device.  A ``jax.numpy`` scalar type (the
+``dtype`` of a pickled experiment config, as in the learned solvers'
+``artifacts/learned_solver_descent{,_v2}.pkl``) is read as numpy's type of
+the same name.  Any other global is refused.
+
+:func:`flax_tree_state_dict` maps any flax parameter tree onto the
+``state_dict`` of a port module whose submodules carry the flax modules'
+names (the learned solvers, the gen-1 guess and guess-and-solver models:
+:func:`learned_solver_state_dict` and :func:`gen1_state_dict` are this
+map), and :func:`flax_tree_from_state_dict` is its reverse
+(:func:`learned_solver_to_flax`, :func:`gen1_to_flax`): ``Dense`` kernels
+transpose, attention kernels flatten their head axes, norm ``scale``
+becomes ``weight``, BatchNorm ``mean``/``var`` the running statistics, and
+any other array (an embedding, a learnable constant) keeps its name.
+:func:`load_flax_tree` loads such a tree into a module.
 
 :func:`frontend_state_dict` maps a flax ``VOFrontend``'s ``params`` and
 ``batch_stats`` onto the port's :class:`VOFrontend` (convolution kernels
@@ -71,6 +85,13 @@ __all__ = [
     "frontend_state_dict",
     "frontend_state_to_flax",
     "load_frontend",
+    "flax_tree_state_dict",
+    "flax_tree_from_state_dict",
+    "load_flax_tree",
+    "learned_solver_state_dict",
+    "learned_solver_to_flax",
+    "gen1_state_dict",
+    "gen1_to_flax",
 ]
 
 FRONTEND_V4 = Path(__file__).resolve().parents[1] / "weights" / "frontend_v4.npz"
@@ -99,6 +120,12 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) == ("jax._src.array", "_reconstruct_array"):
             return _reconstruct_array
+        if module == "jax.numpy" and isinstance(getattr(np, name, None), type) and issubclass(
+            getattr(np, name), np.generic
+        ):
+            # a scalar type (jax.numpy.float32 in a config's dtype field):
+            # numpy's type of the same name
+            return getattr(np, name)
         if (module, name) not in _NUMPY_GLOBALS:
             raise pickle.UnpicklingError(
                 f"checkpoint references {module}.{name}; only numpy arrays can be "
@@ -407,3 +434,110 @@ def load_frontend(
             state[key] = value
     frontend.load_state_dict(state, strict=True)
     return frontend, render_config
+
+
+_ATTENTION_PROJECTIONS = ("query", "key", "value", "out")
+
+
+def _is_attention(path: Tuple[str, ...]) -> bool:
+    """``path`` (module names) ends in a projection of a flax
+    ``SelfAttention`` (named ``attn`` or ``attn_<i>``)."""
+    return len(path) >= 2 and path[-1] in _ATTENTION_PROJECTIONS and path[-2].split("_")[0] == "attn"
+
+
+def flax_tree_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a port module named as the flax module whose
+    ``params`` (and ``batch_stats``) these are.  Without ``batch_stats`` (a
+    tree of gradients or optimiser moments) no running statistics."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping, path: Tuple[str, ...]):
+        prefix = ".".join(path)
+        if "kernel" in node:
+            kernel = np.asarray(node["kernel"])
+            if _is_attention(path) and path[-1] == "out":
+                kernel = kernel.reshape(-1, kernel.shape[-1])  # (heads, head_dim, d)
+            elif kernel.ndim == 3:
+                kernel = kernel.reshape(kernel.shape[0], -1)  # (d, heads, head_dim)
+            sd[f"{prefix}.weight"] = kernel.T
+            if "bias" in node:
+                sd[f"{prefix}.bias"] = np.asarray(node["bias"]).reshape(-1)
+            return
+        if "scale" in node:
+            sd.update(_norm(prefix, node))
+            return
+        for name, child in node.items():
+            if isinstance(child, Mapping):
+                walk(child, path + (name,))
+            else:
+                sd[".".join(path + (name,))] = np.asarray(child)
+
+    def walk_stats(node: Mapping, path: Tuple[str, ...]):
+        if "mean" in node and "var" in node:
+            prefix = ".".join(path)
+            sd[f"{prefix}.running_mean"] = np.asarray(node["mean"])
+            sd[f"{prefix}.running_var"] = np.asarray(node["var"])
+            return
+        for name, child in node.items():
+            walk_stats(child, path + (name,))
+
+    walk(params, ())
+    walk_stats(batch_stats or {}, ())
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def flax_tree_from_state_dict(state_dict: Mapping, *, num_heads: Optional[int] = None) -> Tuple[dict, dict]:
+    """Flax-named numpy ``(params, batch_stats)`` of a ``state_dict`` keyed
+    as :func:`flax_tree_state_dict` makes it (or a dict of tensors keyed
+    alike, such as gradients): a two-dimensional ``weight`` is a ``Dense``
+    kernel, a one-dimensional one a norm's ``scale``; ``num_heads`` splits
+    attention projections (required where there are any)."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path, leaf: str, value) -> None:
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        path = tuple(path)
+        array = _numpy(value)
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            put(stats, path, "mean" if leaf == "running_mean" else "var", array)
+        elif leaf == "weight" and array.ndim == 1:
+            put(params, path, "scale", array)
+        elif leaf in ("weight", "bias") and _is_attention(path):
+            if num_heads is None:
+                raise ValueError("num_heads is required to split attention kernels")
+            if leaf == "bias" and path[-1] != "out":
+                array = array.reshape(num_heads, -1)
+            elif leaf == "weight":
+                kernel = array.T
+                array = (kernel.reshape(num_heads, -1, kernel.shape[-1]) if path[-1] == "out"
+                         else kernel.reshape(kernel.shape[0], num_heads, -1))
+            put(params, path, "kernel" if leaf == "weight" else "bias", array)
+        elif leaf == "weight":
+            put(params, path, "kernel", array.T)
+        else:
+            put(params, path, leaf, array)
+    return params, stats
+
+
+def load_flax_tree(module: torch.nn.Module, params: Mapping, batch_stats: Optional[Mapping] = None) -> None:
+    """Load a flax tree into ``module`` (named as the flax module), in
+    place and strictly; BatchNorm's step counters stay the module's own."""
+    state = flax_tree_state_dict(params, batch_stats)
+    for key, value in module.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            state[key] = value
+    module.load_state_dict(state, strict=True)
+
+
+# the learned solvers and the gen-1 models are named as their flax modules
+learned_solver_state_dict = gen1_state_dict = flax_tree_state_dict
+learned_solver_to_flax = gen1_to_flax = flax_tree_from_state_dict

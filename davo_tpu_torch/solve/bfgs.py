@@ -204,9 +204,11 @@ def bfgs_solve(
 ) -> torch.Tensor:
     """Minimise ``error_function`` independently for every batch element.
 
-    :param error_function: maps ``(B, P) -> (B,)``; each output depends only
-        on its own parameter row.  The line search probes it.
-    :param parameters: ``(B, P)`` initial iterates.
+    :param error_function: maps ``(B..., P) -> (B...,)``; each output
+        depends only on its own parameter row.  The line search probes it.
+    :param parameters: ``(B..., P)`` initial iterates; the solve runs on
+        the ``(B, P)`` flattening of the leading dimensions, and the
+        functions below see, and return, the leading shape ``B...``.
     :param config: solver hyper-parameters.
     :param training: the training iteration and threshold budgets,
         drop-path and ``return_second_last``.
@@ -214,7 +216,7 @@ def bfgs_solve(
         defaults to ``training``.
     :param generator: draws the drop-path keep-masks (``uniform > p``, once
         a step) when ``training`` and ``config.drop_path_p > 0``.
-    :param keep_masks: ``(iterations, B)`` boolean keep-masks to use
+    :param keep_masks: ``(iterations, B...)`` boolean keep-masks to use
         instead of the generator's draws.
     :param value_and_grad_fn: optional ``params -> (error, gradient)``
         replacing autograd (the fused objective, kernel K2); in the
@@ -222,7 +224,7 @@ def bfgs_solve(
     :param direction_fn: optional ``(direction, params, error, step_idx)
         -> direction`` applied after the clamp (a learned search-direction
         modifier).
-    :return: ``(B, P)`` optimised parameters; in the eval mode without a
+    :return: ``(B..., P)`` optimised parameters; in the eval mode without a
         gradient.  With zero iterations, ``parameters`` itself.
     """
     if config.line_search_method not in ("wolfe", "backtracking"):
@@ -358,7 +360,13 @@ def minimise(
     ``make_direction(config, params, differentiable)`` builds the
     solver's :class:`DirectionState`."""
     if parameters.ndim != 2:
-        raise ValueError(f"expected a (B, P) batch, got shape {tuple(parameters.shape)}")
+        # the solve is per row: run it on the (B, P) flattening of the
+        # leading dimensions, the caller's functions seeing their own shape
+        return _flattened(
+            make_direction, error_function, parameters, config, training=training,
+            differentiable=differentiable, generator=generator, keep_masks=keep_masks,
+            value_and_grad_fn=value_and_grad_fn, direction_fn=direction_fn,
+        )
     iterations, threshold = config.resolve(training)
     use_drop_path = training and config.drop_path_p > 0.0
     if use_drop_path and generator is None and keep_masks is None:
@@ -380,6 +388,43 @@ def minimise(
         return _solve(parameters, differentiable=True, **solve)
     with torch.no_grad():
         return _solve(parameters.detach(), differentiable=False, **solve)
+
+
+def _flattened(
+    make_direction, error_function, parameters, config, *, keep_masks, value_and_grad_fn, direction_fn, **kwargs
+):
+    """:func:`minimise` on the ``(B, P)`` flattening of ``(B..., P)``
+    parameters; the error function and the hooks are called with, and
+    return, the leading shape ``B...``, and the result has it."""
+    shape = parameters.shape
+    batch = shape[:-1]
+
+    def unflat(x):
+        return x.reshape(batch + x.shape[1:])
+
+    def flat(x):
+        return x.reshape((-1,) + x.shape[len(batch):])
+
+    def error_flat(params):
+        return flat(error_function(unflat(params)))
+
+    vg_flat = dir_flat = None
+    if value_and_grad_fn is not None:
+        def vg_flat(params):
+            error, gradient = value_and_grad_fn(unflat(params))
+            return flat(error), flat(gradient)
+
+    if direction_fn is not None:
+        def dir_flat(direction, params, error, step_idx):
+            return flat(direction_fn(unflat(direction), unflat(params), unflat(error), step_idx))
+
+    if keep_masks is not None:
+        keep_masks = keep_masks.reshape(keep_masks.shape[0], -1)
+    out = minimise(
+        make_direction, error_flat, parameters.reshape(-1, shape[-1]), config, keep_masks=keep_masks,
+        value_and_grad_fn=vg_flat, direction_fn=dir_flat, **kwargs,
+    )
+    return out.reshape(shape)
 
 
 def _solve(

@@ -124,19 +124,21 @@ def lbfgs_solve(
     """Minimise ``error_function`` independently for every batch element
     with limited-memory BFGS; the contract of :func:`bfgs_solve`.
 
-    :param error_function: maps ``(B, P) -> (B,)``; the line search probes it.
-    :param parameters: ``(B, P)`` initial iterates.
+    :param error_function: maps ``(B..., P) -> (B...,)``; the line search
+        probes it.
+    :param parameters: ``(B..., P)`` initial iterates (solved on the ``(B,
+        P)`` flattening of the leading dimensions, as :func:`bfgs_solve`).
     :param training: the training iteration and threshold budgets,
         drop-path and ``return_second_last``.
     :param differentiable: keep the graph through a fixed-length unroll;
         defaults to ``training``.
     :param generator: draws the drop-path keep-masks.
-    :param keep_masks: ``(iterations, B)`` keep-masks instead of the draws.
+    :param keep_masks: ``(iterations, B...)`` keep-masks instead of the draws.
     :param value_and_grad_fn: optional ``params -> (error, gradient)``
         replacing autograd (kernel K2 in the network's eval solve).
     :param direction_fn: optional ``(direction, params, error, step_idx)
         -> direction`` applied after the clamp.
-    :return: ``(B, P)``; in the eval mode without a gradient.
+    :return: ``(B..., P)``; in the eval mode without a gradient.
     """
     return minimise(
         _LBFGSDirection, error_function, parameters, config, training=training,

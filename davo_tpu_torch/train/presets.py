@@ -1,8 +1,7 @@
-"""Experiment presets (the port of ``davo_tpu/train/presets.py``), as far
-as the port runs them: the two calibration-network presets.  The three
-optimisation presets train the gen-1 stack (``PinholeMLPGuess`` and the
-protocol solver, ``ROADMAP.md`` Queue 1 item 6); :func:`get_preset`
-raises for them and says so.
+"""Experiment presets (the port of ``davo_tpu/train/presets.py``): the two
+calibration-network presets and the three gen-1 optimisation presets
+(``PinholeMLPGuess``, with the analytic-gradient BFGS unrolled in
+training, or alone).
 """
 
 from __future__ import annotations
@@ -10,6 +9,7 @@ from __future__ import annotations
 from davo_tpu_torch.solve import BFGSConfig
 
 from .calibration import CalibrationExperiment
+from .optimisation import OptimisationExperiment
 
 __all__ = ["PRESETS", "get_preset"]
 
@@ -42,19 +42,52 @@ def _calibration_transformer_curriculum() -> CalibrationExperiment:
     )
 
 
+def _bfgs_solver_full_gradient() -> OptimisationExperiment:
+    """Training through 10 unrolled BFGS iterations (differentiated through
+    the analytic gradient too), 40 probes, the interpolating zoom
+    (``configurations/bfgs_solver_full_gradient_config.yaml``)."""
+    return OptimisationExperiment(
+        solver=BFGSConfig(
+            error_threshold=1e-6,
+            iterations=10,
+            drop_path_p=0.0,
+            line_search_iterations=40,
+            max_step_size=1e5,
+            zoom_method="interpolate",
+        ),
+    )
+
+
+def _bfgs_solver_only_error_gradient() -> OptimisationExperiment:
+    """5 unrolled iterations, 12 probes, steps up to 32
+    (``configurations/bfgs_solver_only_error_gradient_config.yaml``)."""
+    return OptimisationExperiment(
+        solver=BFGSConfig(
+            error_threshold=1e-6,
+            iterations=5,
+            drop_path_p=0.0,
+            line_search_iterations=12,
+            max_step_size=32.0,
+        ),
+    )
+
+
+def _mlp_guess() -> OptimisationExperiment:
+    """The guess alone: 200 epochs, hidden 2,048, batch 256
+    (``configurations/mlp_guess_config.yaml``)."""
+    return OptimisationExperiment(hidden_size=2048, batch_size=256, epochs=200, solver_enabled=False)
+
+
 PRESETS = {
     "calibration_from_oracle_matches": _calibration_from_oracle_matches,
     "calibration_transformer_curriculum": _calibration_transformer_curriculum,
+    "bfgs_solver_full_gradient": _bfgs_solver_full_gradient,
+    "bfgs_solver_only_error_gradient": _bfgs_solver_only_error_gradient,
+    "mlp_guess": _mlp_guess,
 }
-_GEN1_PRESETS = ("bfgs_solver_full_gradient", "bfgs_solver_only_error_gradient", "mlp_guess")
 
 
-def get_preset(name: str) -> CalibrationExperiment:
-    if name in _GEN1_PRESETS:
-        raise NotImplementedError(
-            f"preset {name!r} trains the gen-1 stack (PinholeMLPGuess), which is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)"
-        )
+def get_preset(name: str):
     if name not in PRESETS:
         raise KeyError(f"Unknown preset {name!r}; available: {sorted(PRESETS)}")
     return PRESETS[name]()

@@ -3,10 +3,13 @@
 The port of ``davo_tpu/utils/guards.py``.  Each guard has a value-level
 branch that avoids inf/NaN and a matching ``torch.autograd.Function``
 (``backward`` and ``jvp``) so that no NaN leaks into gradients through the
-unused branch.
+unused branch.  :func:`straight_through_max` is the bundle adjustment's
+depth clamp: the value of ``max`` with the derivative of the identity.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -16,6 +19,8 @@ __all__ = [
     "guarded_sqrt",
     "inverse_curvature",
     "interpolate_alpha",
+    "straight_through_max",
+    "project_vector_onto_axis",
 ]
 
 
@@ -197,3 +202,43 @@ def interpolate_alpha(alpha_1, alpha_2, value_1, value_2):
     of either bound.  The bisection branch propagates 0.5 to each alpha
     and zero to the values."""
     return _InterpolateAlpha.apply(alpha_1, alpha_2, value_1, value_2)
+
+
+class _StraightThroughMax(torch.autograd.Function):
+    @staticmethod
+    def forward(x, floor):
+        return torch.maximum(x, floor)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+    @staticmethod
+    def jvp(ctx, t_x, t_floor):
+        return t_x if t_x is not None else torch.zeros_like(t_floor)
+
+
+def straight_through_max(x: torch.Tensor, floor: torch.Tensor) -> torch.Tensor:
+    """``max(x, floor)`` whose derivative is the identity in ``x``
+    everywhere and zero in ``floor`` (reverse and forward mode): points
+    clamped to the minimum depth keep their depth gradients, so the
+    optimiser can pull them back in front of the camera."""
+    return _StraightThroughMax.apply(x, torch.as_tensor(floor, dtype=x.dtype, device=x.device))
+
+
+def project_vector_onto_axis(
+    vector: torch.Tensor, axis: torch.Tensor, axis_square_norm: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``((v . a) / |a|^2) a`` along the last dimension, 0 where the axis is
+    the zero vector; ``axis_square_norm`` (``(..., 1)`` or ``(...)``) may be
+    passed if already computed."""
+    if axis_square_norm is None:
+        axis_square_norm = torch.sum(torch.square(axis), dim=-1, keepdim=True)
+    elif axis_square_norm.ndim < axis.ndim:
+        axis_square_norm = axis_square_norm[..., None]
+    dot = torch.sum(vector * axis, dim=-1, keepdim=True)
+    return dot * safe_reciprocal(axis_square_norm) * axis

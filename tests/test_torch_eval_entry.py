@@ -44,6 +44,8 @@ from davo_tpu.data import generate_batch as j_generate_batch
 from davo_tpu.models import CalibrationNetwork as JNetwork
 from davo_tpu.solve import BFGSConfig as JBFGSConfig
 from davo_tpu.train import calibration as jc
+from davo_tpu.train import get_preset as j_get_preset
+from davo_tpu.train import restore_checkpoint as j_restore_checkpoint
 from davo_tpu.train import save_checkpoint as j_save_checkpoint
 import davo_tpu_torch.train as t_train
 from davo_tpu_torch import cli
@@ -215,12 +217,13 @@ def test_cli_eval_ate_batches(monkeypatch):
     [
         (["--config", "experiment.yaml"], "Queue 1 item 8"),
         (["--tensorboard-dir", "tb"], "Queue 1 item 8"),
-        (["--preset", "bfgs_solver_full_gradient"], "Queue 1 item 6"),
+        (["--preset", "bfgs_solver_full_gradient"], "supports 'fit' only"),
     ],
 )
 def test_cli_refuses_what_is_not_ported(extra, match):
     """What the entry still refuses (basin selection and the permutation,
-    input-noise and token proposals run: ``tests/test_torch_fit.py``)."""
+    input-noise and token proposals run: ``tests/test_torch_fit.py``); a
+    gen-1 preset trains but has no eval, as in the JAX CLI."""
     with pytest.raises(NotImplementedError, match=match):
         cli.run(TINY_ARGS + extra)
 
@@ -269,8 +272,11 @@ def test_checkpoint_and_preset_refusals(tmp_path):
     (tmp_path / "checkpoint_5").mkdir()  # an Orbax checkpoint directory
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         restore_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        presets.get_preset("mlp_guess")
+    # the gen-1 presets are the JAX package's, field by field
+    for name in ("bfgs_solver_full_gradient", "bfgs_solver_only_error_gradient", "mlp_guess"):
+        ours, theirs = dataclasses.asdict(presets.get_preset(name)), dataclasses.asdict(j_get_preset(name))
+        assert str(ours.pop("dtype")).split(".")[-1] == np.dtype(theirs.pop("dtype")).name == "float32"
+        assert ours == theirs, name
     with pytest.raises(KeyError):
         presets.get_preset("no_such_preset")
 
@@ -289,3 +295,72 @@ def test_cli_vo_eval_windows_pipeline_on_the_cpu(tiny_checkpoint, capsys):
         lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
         assert set(lines[0]) == {"trial", "rmse", "mean", "median", "max"} and np.isfinite(lines[0]["rmse"])
         assert lines[-1] == {"mean_ate_rmse": float(f"{lines[0]['rmse']:.6g}")}
+
+
+def test_cli_fit_learned_solver_and_its_checkpoint(tmp_path, capsys):
+    """``fit-learned-solver`` on the CPU at a tiny size (the direction gate,
+    hidden 8, two steps, 2 batches of 16): a train line, then the
+    comparison's four rows, finite.  ``--checkpoint-file`` holds numpy
+    arrays and plain types only (plain ``pickle.load`` reads it; the scenes'
+    type by name): the JAX package's network applied to its weights equals
+    the network the port's loader builds from it."""
+    import davo_tpu.train.learned_solver as jl
+
+    from davo_tpu_torch.train import load_learned_solver
+
+    path = tmp_path / "solver.pkl"
+    argv = ["fit-learned-solver", "--platform", "cpu", "--solver-type", "direction", "--epochs", "1",
+            "--batches-per-epoch", "2", "--batch-size", "16", "--hidden-size", "8", "--steps", "2",
+            "--checkpoint-file", str(path)]
+    assert cli.main(argv) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert lines[0]["split"] == "train" and np.isfinite(lines[0]["final_error"])
+    table = lines[-1]["comparison"]
+    assert set(table) == {"start", "learned", "bfgs_equal_budget", "bfgs_4x_budget"}
+    assert all(np.isfinite(v) for row in table.values() for v in row.values())
+
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    assert set(saved) == {"params", "batch_stats", "config"}
+    assert all(isinstance(v, np.ndarray) for v in _flatten(saved["params"]).values())
+    config = dict(saved["config"])
+    assert config["scene"]["dtype"] == "float32" and config["solver_type"] == "direction"
+    scene = dict(config.pop("scene"), dtype=jnp.dtype("float32"))
+    j_network = jl.LearnedSolverExperiment(**config, scene=JSceneConfig(**scene)).build_network()
+    direction = np.random.default_rng(0).normal(size=(4, P)).astype(np.float32)
+    j_out = j_network.apply({"params": saved["params"], "batch_stats": saved["batch_stats"]}, jnp.asarray(direction),
+                            1, training=False)
+    network, _ = load_learned_solver(path, device="cpu")
+    with torch.no_grad():
+        out = network(torch.tensor(direction), 1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=1e-6, atol=1e-6)
+
+
+def test_cli_fit_gen1_and_eval_refusal(tmp_path, capsys):
+    """``fit`` on a gen-1 preset (``bfgs_solver_only_error_gradient``, hidden
+    16, 2 batches of 8): a train line, the checkpoint path and
+    ``{"final_train": ...}``, finite; the JAX package's
+    ``restore_checkpoint`` reads the checkpoint, flax-named as its
+    ``GuessAndSolverModel``'s variables.  ``eval`` on a gen-1 preset prints
+    the JAX CLI's message and returns 2."""
+    import davo_tpu.models as jm
+
+    argv = ["fit", "--platform", "cpu", "--preset", "bfgs_solver_only_error_gradient", "--epochs", "1",
+            "--batches-per-epoch", "2", "--batch-size", "8", "--hidden-size", "16", "--checkpoint-dir",
+            str(tmp_path)]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[0])["split"] == "train"
+    assert out[1] == f"checkpoint: {tmp_path / 'checkpoint_1.pkl'}"
+    final = json.loads(out[-1])["final_train"]
+    assert {"loss", "mean_error", "focal_length_loss", "cx_loss", "cy_loss"} <= set(final)
+    assert all(np.isfinite(v) for v in final.values())
+    restored = j_restore_checkpoint(str(tmp_path))
+    guess = jm.PinholeMLPGuess(M, N, num_hidden=16)
+    variables = jax.eval_shape(guess.init, jax.random.key(0), jnp.zeros((2, M, N, 2)), jnp.ones((2, M, N), bool))
+    assert _flatten(restored["params"]).keys() == _flatten({"initial_guess": dict(variables["params"])}).keys()
+    assert _flatten(restored["batch_stats"]).keys() == _flatten(
+        {"initial_guess": dict(variables["batch_stats"])}).keys()
+
+    assert cli.main(["eval", "--platform", "cpu", "--preset", "mlp_guess"]) == 2
+    assert "supports 'fit' only" in capsys.readouterr().err

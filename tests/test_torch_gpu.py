@@ -444,3 +444,75 @@ def test_windows_pipeline_recovers_oracle_windows_on_the_card(cuda_device):
 
     result = chip_smoke.vo_windows_recovery(cuda_device)
     assert result["chain"]["refined_ate"] <= 1e-4 and result["global"]["refined_ate"] <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,p", [(256, 45), (64, 44)], ids=["learned_solver_p45_b256", "gen1_p44_b64"])
+def test_bfgs_update_kernel_at_the_learned_solver_and_gen1_shapes(cuda_device, b, p):
+    """compare_with_bfgs's BFGS solves (256 scenes, P = 45) and the gen-1
+    protocol solve of 64 scenes (P = 3 + 6 M + 3 N - 7 = 44)."""
+    h_t, s, y, grad, updating = _k1_inputs(b, p, seed=b + p)
+    on_card = [x.to(cuda_device) for x in (h_t, s, y, grad, updating)]
+    for first, second in FLAGS:
+        before = build.launch_counts["bfgs_update"]
+        k_h, k_d = k1.fused_bfgs_update_direction(*on_card, first, second)
+        torch.cuda.synchronize()
+        assert build.launch_counts["bfgs_update"] == before + 1
+        p_h, p_d = k1.fused_bfgs_update_direction(h_t, s, y, grad, updating, first, second)
+        assert _normwise(k_h, p_h) <= 1e-4
+        assert _normwise(k_d, p_d) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_compare_with_bfgs_on_the_card_matches_the_cpu(cuda_device):
+    """One compare_with_bfgs batch of 256 scenes (the trained MLP solver of
+    artifacts/learned_solver_descent_v2.pkl, float32), drawn on the CPU and
+    solved on each device: the starts' row equal to 1e-6, the BFGS rows'
+    objectives to 2 % and basin rates to 0.03 (a Wolfe decision that
+    rounding flips sends an element down another path), the learned row's
+    objective to 5 % (the trained solver diverges on such starts, which
+    amplifies rounding a step); K1 launched on the card, nothing on the
+    CPU."""
+    from pathlib import Path
+
+    from davo_tpu_torch.data import generate_batch
+    from davo_tpu_torch.train import compare_with_bfgs, load_learned_solver, make_problem
+    from davo_tpu_torch.types import CameraViewsAndPoints
+
+    path = Path(__file__).resolve().parents[1] / "artifacts" / "learned_solver_descent_v2.pkl"
+    tables, launches = {}, {}
+    for device in (cuda_device, torch.device("cpu")):
+        network, config = load_learned_solver(path, device=device)
+        g = torch.Generator().manual_seed(7)
+        batch = generate_batch(g, config.batch_size, config.resolved_scene(), device="cpu")
+        noise = torch.randn(config.batch_size, config.num_parameters, generator=g)
+        problem = make_problem(config, CameraViewsAndPoints(*(x.to(device) for x in batch)), noise.to(device))
+        build.reset_launch_counts()
+        tables[device.type] = compare_with_bfgs(network, config, 0, device=device, problems=[problem])
+        launches[device.type] = dict(build.launch_counts)
+    assert launches["cuda"]["bfgs_update"] > 0 and not any(launches["cpu"].values())
+    card, cpu = tables["cuda"], tables["cpu"]
+    assert card["start"]["objective"] == pytest.approx(cpu["start"]["objective"], rel=1e-6)
+    for row in ("bfgs_equal_budget", "bfgs_4x_budget"):
+        assert card[row]["objective"] == pytest.approx(cpu[row]["objective"], rel=2e-2), row
+        assert abs(card[row]["basin_rate"] - cpu[row]["basin_rate"]) <= 0.03, row
+    assert card["learned"]["objective"] == pytest.approx(cpu["learned"]["objective"], rel=5e-2)
+
+
+@pytest.mark.gpu
+def test_gen1_protocol_solve_on_the_card_launches_k1_and_matches_the_cpu(cuda_device):
+    """bfgs_solve_function on 64 PinholeCameraModelL1 objectives (4 views x
+    8 points, P = 44, float32; chip_smoke.gen1_protocol_solve), built on
+    the CPU and solved on each device: K1 launched on the card and never
+    on the CPU; at least 90 % of the solved parameter vectors agree to
+    1e-3 normwise; on both, the mean objective falls and at least 90 % of
+    the objectives fall (the constrained step's clamps can defeat a line
+    search, as in the JAX package: on the CPU one of the 64 rises)."""
+    import chip_smoke
+
+    result = chip_smoke.gen1_protocol_solve(cuda_device)
+    assert result["launches"]["bfgs_update"] > 0 and not any(result["cpu"]["launches"].values())
+    assert result["share_agreeing_1e3"] >= 0.9
+    for side in ("card", "cpu"):
+        assert result[side]["mean_objective_solved"] < result[side]["mean_objective_start"], side
+        assert result[side]["share_lowered"] >= 0.9, side

@@ -171,7 +171,17 @@ def test_bfgs_value_and_grad_hook_and_bf16_carry():
 
 
 def test_solve_rejects_unknown_search_and_non_2d_batch():
+    """An unknown line search is refused.  A batch that is not 2-D, which
+    the solve refused until the gen-1 stack needed ``(B, E, P)``, is now
+    solved per row as the JAX package solves ``(B..., P)``: a ``(2, 3, 2)``
+    batch of Rosenbrock starts against JAX's, 1e-7 relative to the scale,
+    as this file's other solves."""
     with pytest.raises(ValueError):
         tsolve.bfgs_solve(t_rosenbrock, torch.zeros(2, 2), tsolve.BFGSConfig(line_search_method="newton"))
-    with pytest.raises(ValueError):
-        tsolve.bfgs_solve(t_rosenbrock, torch.zeros(2, 2, 2))
+    x0 = np.random.default_rng(3).uniform(-2.0, 2.0, size=(2, 3, 2))
+    config = dict(iterations=10, line_search_iterations=30, error_threshold=1e-12)
+    j_out = np.asarray(jax.jit(lambda x: jsolve.bfgs_solve(j_rosenbrock, x, jsolve.BFGSConfig(**config)))(
+        jnp.asarray(x0)))
+    t_out = tsolve.bfgs_solve(t_rosenbrock, torch.tensor(x0), tsolve.BFGSConfig(**config))
+    assert tuple(t_out.shape) == (2, 3, 2)
+    np.testing.assert_allclose(t_out.numpy(), j_out, rtol=1e-7, atol=1e-7 * np.max(np.abs(j_out)))
