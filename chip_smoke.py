@@ -107,7 +107,9 @@ Phases, each printed as one JSON line with its seconds:
             validation), peak memory; then each step timed alone, a profiler
             window of 5 steps, and the checkpoint round trip (saved as
             fit-frontend saves it, read back by load_frontend);
-16. vo_eval  learned VO from pixels through the port's vo-eval code at the
+16. vo_eval  (in a process of its own, started before eval_v4 and read
+            here: it runs beside phases 9-15, which time no kernel)
+            learned VO from pixels through the port's vo-eval code at the
             official recipe (vo_windows_transformer_v6_verified, frontend_v4
             at 96 px with the verification gates, 16 frames of 8 points, 3
             bootstraps, ba_irls 2, no refinement), trial 0 (a generator
@@ -150,7 +152,25 @@ Phases, each printed as one JSON line with its seconds:
             preset's steps at its batch (seconds a step, peak memory, losses
             finite, no kernel), and the protocol solver on 64
             PinholeCameraModelL1 objectives (K1 at P = 44) against the CPU;
-21. the kernels line (with each kernel's launches on every path that ran
+21. distorted  python -m davo_tpu_torch.cli eval-distorted at its defaults
+            (Brown-Conrady LM, 4 batches of 16 scenes) and refine_distorted at
+            the JAX bench's size (4,096 scenes of 32 points, 60 LM iterations,
+            float32, CPU-drawn) beside artifacts/distorted_bench_r5b.log: the
+            four figures (the bench's in bands from a CPU run of the same
+            draws), seconds per LM iteration, TF32 off; 16 scenes in float64
+            on the card against the CPU (1e-9); the closed-form Jacobian
+            against jacfwd (float32, 1e-5); no kernel (LM is plain PyTorch);
+22. track_sequence  frontend_v4 (vo_eval's gates) tracking 4 of vo_eval's
+            16-frame orbits sequentially (K3 at 4 problems of 8 track queries
+            against 144 cells, once a frame after the first) and through the
+            anchor path: each frame's share of tracks that keep their world
+            point; K3 at the tracking shape against its plain version, timed;
+23. infra   fit --config configurations/mlp_guess_config.yaml (1 epoch of 2
+            batches, TensorBoard on) registered in a temporary registry, read
+            back by runs list/show/compare; presets; a profiling.trace of one
+            served BFGS iteration naming K1 and K2; the served network's
+            weight_summaries;
+24. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -164,7 +184,7 @@ validation (its train steps read 0), K1-K3 from the vo-eval trial,
 K1 and K2 from the windows trial, K1 from correct_scale_drift, K1-K3
 from the windows trial on learned matches and from eval-seq's learned VO,
 K1 from the learned solvers' comparisons and from the gen-1 protocol
-solve.
+solve, K3 from the sequential tracking.
 """
 
 import itertools
@@ -367,10 +387,39 @@ LEARNED_SOLVER_BAND = (0.6, 1.5)  # times the JAX figure
 GEN1_CHECK_BATCH, GEN1_CHECK_TOL = 16, 1e-8
 GEN1_STEPS = {"bfgs_solver_full_gradient": 4, "bfgs_solver_only_error_gradient": 4, "mlp_guess": 12}
 GEN1_P, GEN1_SOLVE_SCENES = 3 + 6 * M + 3 * N - 7, 64
+# the distortion pipeline: cli eval-distorted at its defaults (4 batches of
+# 16 scenes, 32 points, perturbation 0.02, 60 LM iterations) and
+# refine_distorted at the JAX bench's size (scripts/distorted_bench.py:
+# 4,096 scenes, float32, 60 iterations) on a CPU generator's draws, whose
+# figures must fall in bands written from a CPU run of the same draws
+# (before the first chip call); the card against the CPU in float64 on 16
+# scenes; the closed-form Jacobian against jacfwd in float32
+DISTORTED_BATCH, DISTORTED_ITERATIONS, DISTORTED_SEED = 4096, 60, 0
+DISTORTED_CHECK_SCENES, DISTORTED_CHECK_TOL, DISTORTED_JACOBIAN_TOL = 16, 1e-9, 1e-5
+DISTORTED_LOG = os.path.join(REPO, "artifacts", "distorted_bench_r5b.log")
+# a CPU run of the same draws in float32 read mean_param_error 1.1287e-6
+# and rms_residual 3.751e-8 (max 3.63e-4): the card's rounding may move
+# each by up to 2 times
+DISTORTED_BANDS = {"mean_param_error": (5.6e-7, 2.3e-6), "rms_residual": (1.9e-8, 7.5e-8)}
+# sequential tracking: the vo_eval phase's 16-frame orbits of 8 points
+# (vo-eval's trials 0-3) through frontend_v4 with its gates at 96 px; K3
+# at TRACK_SEQUENCES problems of N = 8 track queries against 144 cells,
+# once a frame after the first
+TRACK_SEQUENCES, TRACK_FRAMES = 4, 16
+TRACK_GATES = dict(nms_radius=0.1, snap_radius=0.12, cycle_threshold=0.15, quality_bonus=10.0, score_threshold=0.2,
+                   centroid_refine_iters=2)
+# the run infrastructure: fit --config of a configurations/ YAML (PyYAML)
+# cut to 1 epoch of 2 batches, its metrics mirrored to TensorBoard (the
+# tensorboard package; the card's machine has both), its run in a
+# temporary registry; the JAX CLI's presets (davo_tpu/train/presets.py:
+# 85-91, sorted as it prints them)
+INFRA_CONFIG = os.path.join(REPO, "configurations", "mlp_guess_config.yaml")
+JAX_PRESETS = ["bfgs_solver_full_gradient", "bfgs_solver_only_error_gradient", "calibration_from_oracle_matches",
+               "calibration_transformer_curriculum", "mlp_guess"]
 # the paths whose launch counts the kernels line reports
 LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval",
                 "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned", "learned_solver",
-                "learned_solver_direction", "gen1_protocol_solve")
+                "learned_solver_direction", "gen1_protocol_solve", "track_sequence")
 
 
 def emit(phase, **fields):
@@ -722,6 +771,18 @@ def sdpa_masked_math_ms(q, k, v):
         return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), reps=20)
 
 
+def k3_bound(b, ql, kl, d, c):
+    """K3's least time at ``b`` problems of ``ql`` queries against ``kl``
+    keys: the bytes (each input read once, the output written once), or
+    the kernel's route, QK^T as three TF32 products on the tensor cores
+    (3xTF32), PV and one exp a score on the CUDA cores; with its parts."""
+    t_bytes = 4 * b * (ql * d + kl * d + kl * c + ql * c) / PEAK_BYTES_PER_S * 1e3
+    t_tensor = 3 * b * 2 * ql * kl * d / PEAK_TF32_OPS_PER_S * 1e3
+    t_cuda = b * (2 * ql * kl * c + ql * kl) / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_tensor, t_cuda)
+    return bound_ms, "bytes" if bound_ms == t_bytes else "operations", (t_bytes, t_tensor, t_cuda)
+
+
 def k3_phase(device):
     from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.attention import flash_match_attention, reference_flash_attention
@@ -757,14 +818,7 @@ def k3_phase(device):
     library = sdpa_ms(q, k, v, reference_flash_attention(q, k, v))
     library_math_ms = sdpa_masked_math_ms(q, k, v)
     b, ql, kl, d, c = K3_PROBLEMS, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH
-    bytes_moved = 4 * b * (ql * d + kl * d + kl * c + ql * c)
-    # the kernel's route: QK^T as three TF32 products on the tensor cores
-    # (3xTF32), PV and one exp a score on the CUDA cores
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_tensor = 3 * b * 2 * ql * kl * d / PEAK_TF32_OPS_PER_S * 1e3
-    t_cuda = b * (2 * ql * kl * c + ql * kl) / PEAK_F32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_tensor, t_cuda)
-    bound_by = "bytes" if bound_ms == t_bytes else "operations"
+    bound_ms, bound_by, (t_bytes, t_tensor, t_cuda) = k3_bound(b, ql, kl, d, c)
     # the same work on the CUDA cores alone (the bound of the first design, which ran there)
     bound_cuda_core_ms = b * (2 * ql * kl * d + 2 * ql * kl * c) / PEAK_F32_OPS_PER_S * 1e3
     return dict(
@@ -2419,6 +2473,384 @@ def gen1_train_phase(device):
     return dict(train_check=check, presets=presets, protocol_solve=solve)
 
 
+# ------------------------------------------------------ distortion ----
+
+
+def distorted_draw(batch, dtype, seed=DISTORTED_SEED):
+    """Scenes and perturbed starts as ``evaluate_distorted_calibration``
+    draws them (32 points, perturbation 0.02, the translation's 5 times
+    larger), from a CPU generator: the card and the CPU solve the same
+    draws."""
+    from davo_tpu_torch.camera import NUM_DISTORTED_PARAMS, DistortedSceneConfig, generate_distorted_scenes
+
+    g = torch.Generator().manual_seed(seed)
+    world, pixels, truth = generate_distorted_scenes(g, batch, DistortedSceneConfig(dtype=dtype), device="cpu")
+    scale = torch.ones(NUM_DISTORTED_PARAMS, dtype=dtype)
+    scale[13:16] = 5.0
+    start = truth + 0.02 * scale * torch.randn(truth.shape, generator=g, dtype=dtype)
+    return world, pixels, truth, start
+
+
+def distorted_metrics(world, pixels, truth, start, refined):
+    """``evaluate_distorted_calibration``'s four figures."""
+    from davo_tpu_torch.camera import distorted_project
+
+    err = (refined - truth).abs()
+    return dict(
+        max_param_error=float(err.max()), mean_param_error=float(err.mean()),
+        rms_residual=float((distorted_project(world, refined) - pixels).square().mean().sqrt()),
+        start_max_param_error=float((start - truth).abs().max()),
+    )
+
+
+def distorted_bench(device):
+    """``refine_distorted`` at the JAX bench's size (4,096 scenes of 32
+    points, 60 LM iterations, float32) on the CPU's draws: the four
+    figures, the solve's seconds (after a 2-iteration warm-up) and seconds
+    per LM iteration."""
+    from davo_tpu_torch.camera import refine_distorted
+    from davo_tpu_torch.solve.least_squares import LMConfig
+
+    world, pixels, truth, start = (x.to(device) for x in distorted_draw(DISTORTED_BATCH, torch.float32))
+    refine_distorted(world, pixels, start, LMConfig(iterations=2))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = refine_distorted(world, pixels, start, LMConfig(iterations=DISTORTED_ITERATIONS))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(
+        batch=DISTORTED_BATCH, points=world.shape[1], lm_iterations=DISTORTED_ITERATIONS,
+        metrics=distorted_metrics(world, pixels, truth, start, refined), seconds_solve=seconds,
+        seconds_per_lm_iteration=seconds / DISTORTED_ITERATIONS,
+        lm_iterations_per_s=DISTORTED_BATCH * DISTORTED_ITERATIONS / seconds,
+    )
+
+
+def distorted_card_against_cpu(device):
+    """One float64 draw of 16 scenes refined on the card and on the CPU
+    (60 iterations): the refined parameters within 1e-9."""
+    from davo_tpu_torch.camera import refine_distorted
+
+    draw = distorted_draw(DISTORTED_CHECK_SCENES, torch.float64, seed=DISTORTED_SEED + 1)
+    cpu = refine_distorted(*draw[:2], draw[3])
+    card = refine_distorted(*(x.to(device) for x in (*draw[:2], draw[3]))).cpu()
+    err = float((card - cpu).abs().max())
+    if not err <= DISTORTED_CHECK_TOL:
+        raise AssertionError(f"distorted: card against CPU {err} exceeds {DISTORTED_CHECK_TOL}")
+    return dict(scenes=DISTORTED_CHECK_SCENES, max_abs_err=err, tolerance=DISTORTED_CHECK_TOL,
+                max_param_error_card=float((card - draw[2]).abs().max()))
+
+
+def distorted_jacobian_check(device):
+    """The closed-form Jacobian against ``torch.func.jacfwd`` on the card,
+    float32, at the bench's batch; each timed."""
+    from davo_tpu_torch.camera import distorted_project_and_jacobian, distorted_project_and_jacobian_jacfwd
+
+    world, _, _, start = (x.to(device) for x in distorted_draw(DISTORTED_BATCH, torch.float32))
+    pix, jac = distorted_project_and_jacobian(world, start)
+    pix_fwd, jac_fwd = distorted_project_and_jacobian_jacfwd(world, start)
+    result = dict(jacobian=check("distorted jacobian", jac, jac_fwd, DISTORTED_JACOBIAN_TOL),
+                  pixels=check("distorted pixels", pix, pix_fwd, DISTORTED_JACOBIAN_TOL))
+    result["closed_form_ms"] = cuda_ms(lambda: distorted_project_and_jacobian(world, start), reps=20)
+    result["jacfwd_ms"] = cuda_ms(lambda: distorted_project_and_jacobian_jacfwd(world, start), reps=5, warmup=1)
+    return result
+
+
+def distorted_phase(device):
+    """``cli eval-distorted`` at its defaults and ``refine_distorted`` at
+    the JAX bench's size on the card (no kernel: LM in plain PyTorch, TF32
+    off), beside the JAX TPU log; the bench's float32 figures in the bands
+    written from a CPU run of the same draws; the card against the CPU in
+    float64; the closed-form Jacobian against jacfwd."""
+    from davo_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cli_metrics = cli.run(["eval-distorted"])
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in cli_metrics.values()) or not cli_metrics["worst_max_param_error"] < 5e-3:
+        raise AssertionError(f"distorted: eval-distorted {cli_metrics}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("distorted: TF32 is on in the LM's J^T J products")
+    bench = distorted_bench(device)
+    assert_within_bands("distorted bench", bench["metrics"], DISTORTED_BANDS)
+    with open(DISTORTED_LOG) as f:
+        jax_tpu = json.loads(next(line for line in f if line.startswith("{")))
+    return dict(
+        eval_distorted=dict(metrics=cli_metrics, seconds=cli_seconds,
+                            seconds_per_lm_iteration=cli_seconds / (4 * DISTORTED_ITERATIONS)),
+        bench=bench, bands=DISTORTED_BANDS, jax_tpu_log_for_comparison=jax_tpu,
+        card_against_cpu=distorted_card_against_cpu(device), jacobian=distorted_jacobian_check(device),
+    )
+
+
+# ---------------------------------------------- sequential tracking ----
+
+
+def track_inputs(device):
+    """The front end of the vo_eval phase (frontend_v4, its gates) and
+    TRACK_SEQUENCES of its 16-frame orbits of 8 points (sequence ``s`` as
+    vo-eval's trial ``s`` draws it: a generator seeded 100 + s, the
+    trajectory then its render at 96 px): images, true projections and
+    their visibility."""
+    from davo_tpu_torch.models import load_frontend
+    from davo_tpu_torch.train.vo_eval import (
+        TrajectoryConfig,
+        draw_trajectory_noise,
+        render_trajectory_images,
+        trajectory_from_noise,
+    )
+
+    frontend, render = load_frontend(FRONTEND_NPZ, device=device, default_points=N, **TRACK_GATES)
+    config = TrajectoryConfig(num_frames=TRACK_FRAMES, num_points=N)
+    images, pixels, visibility = [], [], []
+    for s in range(TRACK_SEQUENCES):
+        g = torch.Generator(device).manual_seed(100 + s)
+        _, _, px, vis = trajectory_from_noise(draw_trajectory_noise(g, config, device), config)
+        images.append(render_trajectory_images(px, vis, g, render))
+        pixels.append(px)
+        visibility.append(vis)
+    return frontend, torch.stack(images), torch.stack(pixels), torch.stack(visibility)
+
+
+def identity_curve(matches, match_visibility, pixels, visibility):
+    """Per frame, the share of the tracks seen there whose point lies
+    nearest to the true projection of the world point their frame-0 point
+    lies nearest to (nearest among the points visible in the frame)."""
+    d2 = (matches[:, :, :, None, :] - pixels[:, :, None, :, :]).square().sum(-1)  # (S, F, N, P)
+    nearest = torch.where(visibility[:, :, None, :], d2, float("inf")).argmin(-1)  # (S, F, N)
+    seen = match_visibility > 0
+    same = (nearest == nearest[:, :1]) & seen
+    return [float(x) for x in same.sum((0, 2)) / seen.sum((0, 2)).clamp(min=1)], \
+        [float(x) for x in seen.float().mean((0, 2))]
+
+
+def track_k3(device):
+    """K3 at the tracking shape (TRACK_SEQUENCES problems of N track
+    queries against 144 cells, and 32 queries) against its plain version;
+    its time, the plain version's, SDPA's and its bound."""
+    from davo_tpu_torch.ops.attention import flash_match_attention, reference_flash_attention
+
+    checks = {}
+    for q_len in (N, 32):
+        q, k, v, _ = k3_inputs(TRACK_SEQUENCES, q_len, K3_CELLS, K3_DEPTH, K3_WIDTH, device, seed=q_len, masked=False)
+        got = flash_match_attention(q, k, v)
+        torch.cuda.synchronize()
+        checks[f"q{q_len}"] = check(f"K3 tracking q={q_len}", got, reference_flash_attention(q, k, v), 1e-5)
+    b, ql, kl, d, c = TRACK_SEQUENCES, N, K3_CELLS, K3_DEPTH, K3_WIDTH
+    q, k, v, _ = k3_inputs(b, ql, kl, d, c, device, seed=11, masked=False)
+    bound_ms, bound_by, _ = k3_bound(b, ql, kl, d, c)
+    library = sdpa_ms(q, k, v, reference_flash_attention(q, k, v))
+    if library["library_ms"] is not None:
+        # at 4 problems both calls are the host's enqueue: the card's own
+        # time of each, from a CUDA graph, beside it
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        v4 = torch.nn.functional.pad(v, (0, library["library_value_width"] - c))[:, None].contiguous()
+        with sdpa_kernel([getattr(SDPBackend, library["library_backend"])]):
+            library["library_graph_ms"] = graph_replay_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q[:, None], k[:, None], v4), reps=50)
+    return dict(
+        problems=b, queries=ql, keys=kl, depth=d, width=c, checks=checks,
+        max_abs_err=max(x["max_abs_err"] for x in checks.values()),
+        ms=cuda_ms(lambda: flash_match_attention(q, k, v), reps=50),
+        graph_ms=graph_replay_ms(lambda: flash_match_attention(q, k, v), reps=50),
+        plain_ms=cuda_ms(lambda: reference_flash_attention(q, k, v), reps=20),
+        bound_ms=bound_ms, bound_by=bound_by, **library,
+    )
+
+
+def track_sequence_phase(device):
+    """Sequential tracking (``VOFrontend(track_sequence=True)``) on the
+    vo_eval phase's orbits, launches counted from 0 just before it (K3
+    once a frame after the first), and the anchor path (every frame
+    matched to frame 0, one window of 16 views) on the same frames, apart:
+    each one's identity curve; then K3 at the tracking shape."""
+    from davo_tpu_torch.ops import build
+
+    frontend, images, pixels, visibility = track_inputs(device)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tracked = frontend(images, track_sequence=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    if launches.get("match_attention", 0) != TRACK_FRAMES - 1:
+        raise AssertionError(f"track_sequence: K3 launched {launches} times, not once a frame after the first")
+    if tuple(tracked.matches.shape) != (TRACK_SEQUENCES, TRACK_FRAMES, N, 2) or not torch.isfinite(
+            tracked.matches).all():
+        raise AssertionError(f"track_sequence: bad matches {tuple(tracked.matches.shape)}")
+    anchor = frontend(images)
+    torch.cuda.synchronize()
+    identity, seen = identity_curve(tracked.matches, tracked.match_visibility, pixels, visibility)
+    identity_anchor, seen_anchor = identity_curve(anchor.matches, anchor.match_visibility, pixels, visibility)
+    return dict(
+        sequences=TRACK_SEQUENCES, frames=TRACK_FRAMES, tracks=N, gates=TRACK_GATES, seconds_tracking=seconds,
+        launches=launches, identity_share_tracking=identity, seen_share_tracking=seen,
+        identity_share_anchor=identity_anchor, seen_share_anchor=seen_anchor, k3=track_k3(device),
+    )
+
+
+# --------------------------------------------------- infrastructure ----
+
+
+def _cli_lines(argv):
+    """``cli.main(argv)``'s exit code and printed lines."""
+    import contextlib
+    import io
+
+    from davo_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(argv)
+    return code, out.getvalue().strip().splitlines()
+
+
+def infra_phase(device):
+    """``fit --config`` (mlp_guess_config.yaml cut to 1 epoch of 2 batches)
+    registering its run in a temporary registry, ``runs list|show|compare``
+    reading it back; ``presets``; a ``profiling.trace`` around one served
+    BFGS iteration (K1 and K2 named in its Chrome trace); the served
+    network's ``weight_summaries``."""
+    from davo_tpu_torch.data import SceneConfig, generate_batch
+    from davo_tpu_torch.models.convert import state_dict_to_flax
+    from davo_tpu_torch.train import weight_summaries
+    from davo_tpu_torch.utils import trace
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        registry = os.path.join(tmp, "runs")
+        argv = ["fit", "--config", INFRA_CONFIG, "--epochs", "1", "--batches-per-epoch", "2", "--registry-dir",
+                registry, "--metrics-file", os.path.join(tmp, "m.jsonl"), "--checkpoint-dir", os.path.join(tmp, "ck"),
+                "--tensorboard-dir", os.path.join(tmp, "tb")]
+        t0 = time.perf_counter()
+        code, lines = _cli_lines(argv)
+        out["fit_seconds"] = time.perf_counter() - t0
+        run = json.loads(lines[0])
+        if code != 0 or "final_train" not in json.loads(lines[-1]):
+            raise AssertionError(f"infra: fit --config failed ({code}): {lines[-3:]}")
+        out["fit"] = dict(run=run, final=json.loads(lines[-1]))
+        code, listed = _cli_lines(["runs", "list", "--registry-dir", registry])
+        listed = [json.loads(line) for line in listed]
+        code_show, shown = _cli_lines(["runs", "show", run["run_id"], "--registry-dir", registry])
+        shown = json.loads("\n".join(shown))
+        code_compare, compared = _cli_lines(["runs", "compare", "--registry-dir", registry, "--split", "train"])
+        compared = json.loads("\n".join(compared))
+        if (code, code_show, code_compare) != (0, 0, 0) or [r["run_id"] for r in listed] != [run["run_id"]] \
+                or shown["final_metrics"]["train"]["loss"] != out["fit"]["final"]["final_train"]["loss"] \
+                or set(compared["metrics"]["loss"]) != {run["run_id"]} or listed[0]["backend"] != "cuda":
+            raise AssertionError(f"infra: the registry did not read back: {listed} {shown} {compared}")
+        out["runs"] = dict(list=listed, show_final_metrics=shown["final_metrics"], compare=compared)
+        out["tensorboard_files"] = os.listdir(os.path.join(tmp, "tb"))
+        if not any(name.startswith("events.out.tfevents.") for name in out["tensorboard_files"]):
+            raise AssertionError(f"infra: no TensorBoard event file ({out['tensorboard_files']})")
+        code, presets = _cli_lines(["presets"])
+        if code != 0 or [line.split(":")[0] for line in presets] != JAX_PRESETS:
+            raise AssertionError(f"infra: presets {presets}")
+        out["presets"] = presets
+
+        network = serve_network(device, iterations=1)
+        scenes = generate_batch(torch.Generator(device).manual_seed(9), SERVE_SCENES, SceneConfig(), device=device)
+        network(scenes.projected_points, scenes.visibility_mask)  # warm-up
+        trace_dir = os.path.join(tmp, "trace")
+        with trace(trace_dir):
+            network(scenes.projected_points, scenes.visibility_mask)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        kernels = sorted(n for n in names if "bfgs_update" in n or "calibration_vg" in n)
+        if not any("bfgs_update" in n for n in kernels) or not any("calibration_vg" in n for n in kernels):
+            raise AssertionError(f"infra: the trace names no K1 or K2 kernel ({sorted(names)[:20]})")
+        out["trace"] = dict(kernels=kernels, kernel_names=len(names))
+    summaries = weight_summaries(state_dict_to_flax(network.state_dict(), num_heads=8)[0])
+    if not all(math.isfinite(v) for s in summaries.values() for v in s.values()):
+        raise AssertionError("infra: weight summaries not finite")
+    out["weight_summaries"] = dict(leaves=len(summaries), first=dict(list(summaries.items())[:3]))
+    return out
+
+
+def start_side_phase(name):
+    """``name``'s phase in a process of its own (``python3 chip_smoke.py
+    --phase <name>``), on the same card, with the library this process
+    built; its output goes to temporary files (a pipe left unread would
+    stall it)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", name], cwd=REPO, stdout=out,
+                            stderr=err, text=True)
+    return proc, out, err
+
+
+def side_phase_result(name, side):
+    """Wait for ``name``'s side process; its result is its last line."""
+    proc, out, err = side.pop(name)
+    with out, err:
+        proc.wait()
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"{name}: its process exited {proc.returncode}: {err.read()[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def run_phases(device, smi, paths, side):
+    """The paths after the kernel checks and the serving, each emitted as
+    it ends.  vo_eval's trial (255-370 s of host-bound solves, PERF.md
+    section 5) runs in a side process from eval_v4 on, beside phases that
+    time no kernel (the kernel checks and the fused-objective and tuning
+    scripts run before it starts), so the run fits its time limit without
+    cutting a path's depth; its launches are counted in its own process."""
+    phases = [
+        ("fused_objective", lambda: fused_objective_phase(device)),
+        ("k1_tune", lambda: k1_tune_phase(device)),
+        ("eval_v4", lambda: eval_v4_phase(device)),
+        ("eval_restarts", lambda: eval_restarts_phase(device)),
+        ("train_check", lambda: train_check_phase(device)),
+        ("train", lambda: train_phase(device)),
+        ("eval_lbfgs", lambda: eval_lbfgs_phase(device)),
+        ("frontend_train_check", lambda: frontend_train_check_phase(device)),
+        ("frontend_train", lambda: frontend_train_phase(device)),
+        ("vo_eval", lambda: side_phase_result("vo_eval", side)),
+        ("vo_windows", lambda: vo_windows_phase(device)),
+        ("eval_seq", lambda: eval_seq_phase(device)),
+        ("learned_solver", lambda: learned_solver_phase(device)),
+        ("gen1_train", lambda: gen1_train_phase(device)),
+        ("distorted", lambda: distorted_phase(device)),
+        ("track_sequence", lambda: track_sequence_phase(device)),
+        ("infra", lambda: infra_phase(device)),
+    ]
+    for label, fn in phases:
+        if label == "eval_v4":
+            side["vo_eval"] = start_side_phase("vo_eval")
+        t0 = time.perf_counter()
+        paths[label] = fn()
+        emit(label, card=smi, **paths[label], seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+
+
+def run_side_phase(name):
+    """``--phase <name>``: one phase alone on the card; its result as the
+    last line of standard output."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.utils.precision import full_f32_matmuls
+
+    device = torch.device("cuda")
+    full_f32_matmuls()
+    build.load_library()
+    t0 = time.perf_counter()
+    result = globals()[f"{name}_phase"](device)
+    result["seconds_in_its_process"] = time.perf_counter() - t0
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2495,26 +2927,15 @@ def main():
     emit("bench", card=smi, **bench_phase(device), seconds=time.perf_counter() - t0)
 
     paths = {"frontend_serve": frontend_serve}
-    for label, fn in (
-        ("fused_objective", lambda: fused_objective_phase(device)),
-        ("k1_tune", lambda: k1_tune_phase(device)),
-        ("eval_v4", lambda: eval_v4_phase(device)),
-        ("eval_restarts", lambda: eval_restarts_phase(device)),
-        ("train_check", lambda: train_check_phase(device)),
-        ("train", lambda: train_phase(device)),
-        ("eval_lbfgs", lambda: eval_lbfgs_phase(device)),
-        ("frontend_train_check", lambda: frontend_train_check_phase(device)),
-        ("frontend_train", lambda: frontend_train_phase(device)),
-        ("vo_eval", lambda: vo_eval_phase(device)),
-        ("vo_windows", lambda: vo_windows_phase(device)),
-        ("eval_seq", lambda: eval_seq_phase(device)),
-        ("learned_solver", lambda: learned_solver_phase(device)),
-        ("gen1_train", lambda: gen1_train_phase(device)),
-    ):
-        t0 = time.perf_counter()
-        paths[label] = fn()
-        emit(label, card=smi, **paths[label], seconds=time.perf_counter() - t0)
-        torch.cuda.empty_cache()
+    side = {}
+    try:
+        run_phases(device, smi, paths, side)
+    finally:
+        for proc, out, err in side.values():  # a phase that raised left its side process running
+            proc.kill()
+            proc.wait()
+            out.close()
+            err.close()
     paths["vo_windows_scale_drift"] = paths["vo_windows"]["scale_drift"]
     paths["vo_windows_learned"] = paths["vo_windows"]["learned_matches"]
     paths["eval_seq_learned"] = paths["eval_seq"]["learned"]
@@ -2557,4 +2978,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_side_phase(sys.argv[2]) if sys.argv[1:2] == ["--phase"] else main())

@@ -1,6 +1,7 @@
 """Command-line entry of the port (the ``fit``, ``eval``, ``fit-frontend``,
-``fit-learned-solver``, ``vo-eval`` and ``eval-seq`` subcommands of
-``davo_tpu/cli.py``).
+``fit-learned-solver``, ``vo-eval``, ``eval-seq``, ``eval-distorted``,
+``presets`` and ``runs`` subcommands of ``davo_tpu/cli.py``; ``bench`` is
+not ported).
 
     python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
         --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
@@ -24,6 +25,11 @@
         --frontend-checkpoint davo_tpu_torch/weights/frontend_v4.npz [gates] --trials 4
     python -m davo_tpu_torch.cli eval-seq --gt <gt.txt> [--est <est.txt>] [--format tum|kitti] \\
         [--checkpoint <weights.pkl> --points 8 [--frontend-checkpoint <npz>]]
+    python -m davo_tpu_torch.cli eval-distorted [--batches 4 --batch-size 16 --points 32 \\
+        --perturbation 0.02 --pixel-noise 0 --lm-iterations 60 --seed 0]
+    python -m davo_tpu_torch.cli fit --config configurations/mlp_guess_config.yaml
+    python -m davo_tpu_torch.cli presets
+    python -m davo_tpu_torch.cli runs list|show <run id>|compare [<run id> ...] [--registry-dir artifacts/runs]
 
 ``fit`` trains the preset (``train/calibration.py::fit``: checkpoints of
 the whole state every 25 epochs and at the end in ``--checkpoint-dir``,
@@ -73,8 +79,21 @@ an ``--est`` trajectory file with ``--gt`` (ATE and RPE, TUM timestamps
 associated within ``--max-dt``), or runs VO along ``--gt`` on landmarks
 synthesised along it (oracle windows, or the learned pipeline with
 ``--checkpoint``, from rendered frames with ``--frontend-checkpoint``),
-and prints one JSON line of the JAX CLI's keys.  Every subcommand runs on the card;
-``--platform cpu`` selects the CPU.  Scenes are drawn by
+and prints one JSON line of the JAX CLI's keys.  ``eval-distorted``
+recovers the 16 Brown-Conrady parameters by Levenberg-Marquardt on
+``--batches`` batches (batch ``i`` drawn from a generator seeded ``--seed
++ i``) and prints the metrics' averages and ``worst_max_param_error``.
+``fit`` and ``eval`` take ``--config`` (a YAML file of
+``configurations/``: its ``preset:`` replaces ``--preset``, the flags
+override both; it needs PyYAML), and the training commands
+``--tensorboard-dir`` (it needs the ``tensorboard`` package).  ``fit``,
+``fit-frontend`` and ``fit-learned-solver`` register their run in
+``--registry-dir`` (``artifacts/runs``, the JAX package's registry, whose
+rows either package reads) and stamp its manifest into the metrics file
+and the checkpoint directory; ``fit`` prints its ``run_id``,
+``config_hash`` and ``git_sha`` first.  ``presets`` lists the presets and
+``runs list|show|compare`` browses the registry.  Every subcommand runs on
+the card; ``--platform cpu`` selects the CPU.  Scenes are drawn by
 ``torch.Generator``s seeded from ``--seed``, not by ``jax.random``, so
 the figures match the JAX package's statistically.
 """
@@ -91,15 +110,23 @@ from typing import Optional, Sequence
 
 import torch
 
+from davo_tpu_torch.train.runs import DEFAULT_REGISTRY_DIR
+
 __all__ = ["main", "run", "vo_eval_setup"]
 
 _PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+_TENSORBOARD_HELP = "TensorBoard event dir (needs the tensorboard package)"
+_REGISTRY_HELP = "run registry directory (registry.jsonl; the JAX package's by default)"
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's common flags."""
     p.add_argument("--preset", default="calibration_from_oracle_matches")
-    p.add_argument("--config", default=None, help="YAML experiment config (not ported yet)")
+    p.add_argument(
+        "--config", default=None,
+        help="YAML experiment config (see configurations/*.yaml); its optional `preset:` key replaces --preset, "
+        "CLI flags override both (needs PyYAML)",
+    )
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--batches-per-epoch", type=int, default=None)
@@ -107,7 +134,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
-    p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
+    p.add_argument("--tensorboard-dir", default=None, help=_TENSORBOARD_HELP)
+    p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR, help=_REGISTRY_HELP)
     p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
     p.add_argument("--head", default=None, help="guess head: mlp | transformer")
     p.add_argument("--learning-rate", type=float, default=None)
@@ -120,8 +148,6 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _apply_overrides(config, args):
-    if args.config:
-        raise NotImplementedError("--config: YAML experiment configs are not ported yet (ROADMAP.md Queue 1 item 8)")
     updates = {}
     for field in ("epochs", "batch_size", "batches_per_epoch", "val_batches", "seed", "head", "learning_rate",
                   "hidden_size", "transformer_layers", "transformer_heads", "guess_tokens"):
@@ -193,12 +219,121 @@ def _build_parser() -> argparse.ArgumentParser:
     fe_p.add_argument("--select", type=int, default=None, help="solver-facing tracks per window (default: --points)")
     fe_p.add_argument("--checkpoint-dir", default=None)
     fe_p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
-    fe_p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
+    fe_p.add_argument("--tensorboard-dir", default=None, help=_TENSORBOARD_HELP)
+    fe_p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR, help=_REGISTRY_HELP)
     fe_p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
     _add_fit_learned_solver(sub)
     _add_vo_eval(sub)
     _add_eval_seq(sub)
+    _add_eval_distorted(sub)
+    sub.add_parser("presets", help="list experiment presets")
+    runs_p = sub.add_parser(
+        "runs",
+        help="browse the run registry: list runs, show one run's manifest and final metrics, or compare several "
+        "side by side",
+    )
+    runs_p.add_argument("action", choices=("list", "show", "compare"))
+    runs_p.add_argument("run_ids", nargs="*",
+                        help="run ids for show/compare (unique prefixes accepted; compare with none selects every run)")
+    runs_p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR)
+    runs_p.add_argument("--split", default="val", help="metrics split for compare")
     return parser
+
+
+def _add_eval_distorted(sub) -> None:
+    """``eval-distorted``'s flags and defaults, as the JAX CLI's."""
+    p = sub.add_parser(
+        "eval-distorted",
+        help="Brown-Conrady distorted calibration: LM recovery of all 16 parameters from observed pixels of known "
+        "world points (scenes drawn by torch generators: other draws than jax.random's, the same statistics)",
+    )
+    for flag, kind, default in (
+        ("--batches", int, 4), ("--batch-size", int, 16), ("--points", int, 32), ("--perturbation", float, 0.02),
+        ("--pixel-noise", float, 0.0), ("--lm-iterations", int, 60), ("--seed", int, 0),
+    ):
+        p.add_argument(flag, type=kind, default=default)
+    p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
+
+
+def _eval_distorted(args, device) -> dict:
+    """``eval-distorted``: the metrics of each batch (batch ``i`` from a
+    generator seeded ``--seed + i``), averaged, and the worst batch's
+    ``max_param_error``."""
+    from davo_tpu_torch.camera import DistortedSceneConfig, evaluate_distorted_calibration
+    from davo_tpu_torch.solve.least_squares import LMConfig
+
+    results = [
+        evaluate_distorted_calibration(
+            torch.Generator(device).manual_seed(args.seed + i), batch=args.batch_size,
+            perturbation=args.perturbation, pixel_noise=args.pixel_noise,
+            scene=DistortedSceneConfig(num_points=args.points), lm=LMConfig(iterations=args.lm_iterations),
+            device=device,
+        )
+        for i in range(args.batches)
+    ]
+    avg = {k: float(sum(r[k] for r in results) / len(results)) for k in results[0]}
+    avg["worst_max_param_error"] = float(max(r["max_param_error"] for r in results))
+    return avg
+
+
+def _presets() -> None:
+    """``presets``: one ``name: ConfigClass`` line a preset, as the JAX CLI."""
+    from davo_tpu_torch.train import PRESETS
+
+    for name, make_config in sorted(PRESETS.items()):
+        print(f"{name}: {type(make_config()).__name__}")
+
+
+def _runs(args) -> None:
+    """``runs list|show|compare``: the registry's rows, one run's manifest
+    with its final metrics, or several runs' final metrics and config
+    differences (the JAX CLI's lines and exit codes)."""
+    from davo_tpu_torch.train.runs import compare_runs, final_metrics, load_registry, metrics_path_for
+
+    rows = load_registry(args.registry_dir)
+    if not rows:
+        raise _Refused(f"no runs registered under {args.registry_dir}", code=1)
+
+    def select(prefix):
+        matches = [r for r in rows if r.get("run_id", "").startswith(prefix)]
+        if not matches:
+            raise _Refused(f"no run matches {prefix!r}", code=1)
+        if len(matches) > 1:
+            raise _Refused(f"{prefix!r} is ambiguous: " + ", ".join(r["run_id"] for r in matches), code=1)
+        return matches
+
+    if args.action == "list":
+        for row in rows:
+            final = final_metrics(row)
+            loss = (final.get("val") or final.get("train") or {}).get("loss")
+            print(json.dumps({
+                "run_id": row.get("run_id"),
+                "name": row.get("name"),
+                "created": row.get("created"),
+                "git_sha": (row.get("git_sha") or "")[:10],
+                "backend": row.get("backend"),
+                "checkpoint_dir": row.get("checkpoint_dir"),
+                "final_loss": None if loss is None else round(loss, 6),
+            }), flush=True)
+    elif args.action == "show":
+        if len(args.run_ids) != 1:
+            raise _Refused("runs show takes exactly one run id", code=2)
+        row = select(args.run_ids[0])[0]
+        print(json.dumps({**row, "metrics_file": metrics_path_for(row), "final_metrics": final_metrics(row)},
+                         indent=2), flush=True)
+    else:
+        selected = [m for prefix in args.run_ids or [r["run_id"] for r in rows] for m in select(prefix)]
+        print(json.dumps(compare_runs(selected, split=args.split), indent=2), flush=True)
+
+
+def _register(config, args, name, checkpoint_dir=None) -> dict:
+    """Register a training run (the JAX CLI's manifest, tagged with the
+    command) and return its manifest."""
+    from davo_tpu_torch.train.runs import make_run_manifest, register_run
+
+    manifest = make_run_manifest(config, name=name, tags={"command": args.command}, argv=sys.argv[:1] + args.argv)
+    register_run(manifest, registry_dir=args.registry_dir, checkpoint_dir=checkpoint_dir)
+    return manifest
 
 
 def _add_fit_learned_solver(sub) -> None:
@@ -221,15 +356,17 @@ def _add_fit_learned_solver(sub) -> None:
     p.add_argument("--no-recurrent", action="store_true")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
     p.add_argument("--checkpoint-file", default=None, help="pickle the trained solver state here")
-    p.add_argument("--tensorboard-dir", default=None, help="TensorBoard event dir (not ported yet)")
+    p.add_argument("--tensorboard-dir", default=None, help=_TENSORBOARD_HELP)
+    p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR, help=_REGISTRY_HELP)
     p.add_argument("--platform", default=None, help="cpu, or the card (the default)")
 
 
-def _fit_learned_solver(args, device, logger) -> dict:
-    """``fit-learned-solver``: train, optionally pickle, compare with BFGS."""
+def _fit_learned_solver(args, device) -> dict:
+    """``fit-learned-solver``: register the run, train, optionally pickle,
+    compare with BFGS."""
     import pickle
 
-    from davo_tpu_torch.train import LearnedSolverExperiment, compare_with_bfgs, fit_learned_solver
+    from davo_tpu_torch.train import LearnedSolverExperiment, MetricsLogger, compare_with_bfgs, fit_learned_solver
     from davo_tpu_torch.train.learned_solver import learned_solver_checkpoint
 
     config = LearnedSolverExperiment(solver_type=args.solver_type)
@@ -247,7 +384,12 @@ def _fit_learned_solver(args, device, logger) -> dict:
     if args.loss_mode:
         updates["loss_mode"] = args.loss_mode
     config = dataclasses.replace(config, **updates)
-    state, _ = fit_learned_solver(config, log_fn=logger, device=device)
+    manifest = _register(config, args, "fit-learned-solver")
+    logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir, run=manifest)
+    try:
+        state, _ = fit_learned_solver(config, log_fn=logger, device=device)
+    finally:
+        logger.close()
     if args.checkpoint_file:
         with open(args.checkpoint_file, "wb") as f:
             pickle.dump(learned_solver_checkpoint(state.network, config), f)
@@ -255,8 +397,9 @@ def _fit_learned_solver(args, device, logger) -> dict:
 
 
 class _Refused(NotImplementedError):
-    """A request the JAX CLI does not implement either: :func:`main` prints
-    the message and returns the JAX CLI's exit code."""
+    """A request the JAX CLI refuses too (a preset without eval, a run the
+    registry does not hold): :func:`main` prints the message and returns
+    the JAX CLI's exit code."""
 
     def __init__(self, message: str, code: int = 2):
         super().__init__(message)
@@ -421,11 +564,16 @@ def _eval_seq(args, device) -> dict:
     return {k: float(v) for k, v in metrics.items()}
 
 
-def _fit_frontend(args, device, logger) -> dict:
-    from davo_tpu_torch.train import fit_frontend, save_frontend_checkpoint
+def _fit_frontend(args, device) -> dict:
+    from davo_tpu_torch.train import MetricsLogger, fit_frontend, save_frontend_checkpoint
 
     config = _frontend_config(args)
-    state, history = fit_frontend(config, log_fn=logger, device=device)
+    manifest = _register(config, args, "fit-frontend", checkpoint_dir=args.checkpoint_dir)
+    logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir, run=manifest)
+    try:
+        state, history = fit_frontend(config, log_fn=logger, device=device)
+    finally:
+        logger.close()
     if args.checkpoint_dir:
         path = save_frontend_checkpoint(args.checkpoint_dir, len(history["train"]), state.network, config)
         print(f"checkpoint: {path}", flush=True)
@@ -569,22 +717,18 @@ def _vo_eval(args, device) -> dict:
     return {"mean_ate_rmse": float(f"{mean_rmse:.6g}")}
 
 
-def run(argv: Optional[Sequence[str]] = None) -> dict:
+def run(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
     """Parse ``argv`` and run the subcommand; returns what :func:`main`
-    prints last."""
+    prints last (``presets`` and ``runs`` print their own lines and return
+    None)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = _build_parser().parse_args(argv)
-    from davo_tpu_torch.models import load_flax_weights
-    from davo_tpu_torch.train import (
-        CalibrationExperiment,
-        MetricsLogger,
-        batch_generator,
-        evaluate_calibration_ate,
-        fit,
-        get_preset,
-        latest_step,
-        make_eval_step,
-        restore_checkpoint,
-    )
+    args.argv = argv  # recorded in a training run's manifest
+    if args.command == "presets":
+        return _presets()
+    if args.command == "runs":
+        return _runs(args)
+    from davo_tpu_torch.train import MetricsLogger, get_preset, load_config_yaml
     from davo_tpu_torch.utils.device import resolve_device
 
     if args.platform is not None and args.platform not in _PLATFORMS:
@@ -594,15 +738,39 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         return _vo_eval(args, device)
     if args.command == "eval-seq":
         return _eval_seq(args, device)
-    logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir)
+    if args.command == "eval-distorted":
+        return _eval_distorted(args, device)
     if args.command == "fit-frontend":
-        return _fit_frontend(args, device, logger)
+        return _fit_frontend(args, device)
     if args.command == "fit-learned-solver":
-        return _fit_learned_solver(args, device, logger)
-    config = _apply_overrides(get_preset(args.preset), args)
+        return _fit_learned_solver(args, device)
+    config = _apply_overrides(load_config_yaml(args.config) if args.config else get_preset(args.preset), args)
+    manifest = None
+    if args.command == "fit":
+        manifest = _register(config, args, args.config or args.preset, checkpoint_dir=args.checkpoint_dir)
+        print(json.dumps({k: manifest[k] for k in ("run_id", "config_hash", "git_sha")}), flush=True)
+    logger = MetricsLogger(args.metrics_file, tensorboard_dir=args.tensorboard_dir, run=manifest)
+    try:
+        return _fit_or_eval(args, config, device, logger)
+    finally:
+        logger.close()
+
+
+def _fit_or_eval(args, config, device, logger) -> dict:
+    """``fit`` or ``eval`` of a preset or ``--config`` experiment."""
+    from davo_tpu_torch.models import load_flax_weights
+    from davo_tpu_torch.train import (
+        CalibrationExperiment,
+        batch_generator,
+        evaluate_calibration_ate,
+        fit,
+        latest_step,
+        make_eval_step,
+        restore_checkpoint,
+    )
+
     if not isinstance(config, CalibrationExperiment):
         return _fit_gen1(args, config, device, logger)
-
     if args.command == "fit":
         _, history = fit(config, log_fn=logger, checkpoint_dir=args.checkpoint_dir, device=device)
         if args.checkpoint_dir:
@@ -635,7 +803,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except _Refused as refused:
         print(refused, file=sys.stderr)
         return refused.code
-    print(json.dumps(result), flush=True)
+    if result is not None:
+        print(json.dumps(result), flush=True)
     return 0
 
 

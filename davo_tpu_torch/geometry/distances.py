@@ -1,5 +1,5 @@
-"""Angle between homogeneous projective-plane coordinates (the port of
-``davo_tpu/geometry/distances.py::projective_plane_angle_distance``)."""
+"""Distances between homogeneous projective-plane coordinates (the port of
+``davo_tpu/geometry/distances.py``): the angle and the cosine distance."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ import torch
 
 from davo_tpu_torch.utils.guards import safe_norm
 
-__all__ = ["projective_plane_angle_distance"]
+__all__ = ["projective_plane_angle_distance", "projective_plane_cosine_distance"]
 
 # float64 machine epsilon: the floor under every normalising norm
 _NORM_FLOOR = 2.220446049250313e-16
@@ -34,3 +34,14 @@ def projective_plane_angle_distance(
     diff = safe_norm(a - b, keepdim=keepdim)
     summ = safe_norm(a + b, keepdim=keepdim)
     return 2.0 * torch.atan2(diff, summ)
+
+
+def projective_plane_cosine_distance(
+    projective_points_a: torch.Tensor,
+    projective_points_b: torch.Tensor,
+) -> torch.Tensor:
+    """``1 - cos`` of the angle between homogeneous coordinates as vectors
+    of R^3, in ``[0, 2]``."""
+    a = _normalise(projective_points_a)
+    b = _normalise(projective_points_b)
+    return 1.0 - torch.sum(a * b, dim=-1)

@@ -28,6 +28,7 @@ __all__ = [
     "so3_rotation_matrix",
     "rotate_vector_axis_angle",
     "so3_parameter_jacobian",
+    "so3_vector_jacobian",
     "axis_angle_from_quaternion",
     "quaternion_from_matrix",
     "axis_angle_from_matrix",
@@ -56,6 +57,10 @@ def so3_rotation_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
     outer = axis_angle[..., :, None] * axis_angle[..., None, :]
     return cos_from_sq(s) * eye + one_minus_cos_sq(s) * outer + sinc_sq(s) * skew_matrix(axis_angle)
+
+
+# d(R(w) v)/dv is R(w) itself
+so3_vector_jacobian = so3_rotation_matrix
 
 
 def rotate_vector_axis_angle(vector: torch.Tensor, axis_angle: torch.Tensor) -> torch.Tensor:

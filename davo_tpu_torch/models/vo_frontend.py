@@ -24,9 +24,15 @@ attention dropout when ``dropout > 0``, and the graph is kept;
 everything after the matcher is as in eval.  The eval forward runs
 without a graph.
 
-Sequential tracking (``track_sequence``, ``_track_sequence_impl``) and
-``frontend_detect`` are not ported yet (``ROADMAP.md`` Queue 1 item 10):
-no command of either package reaches them; ``vo-eval`` takes the
+Sequential tracking (``track_sequence=True``) chains identities frame by
+frame instead of matching every view to the anchor: frame 0's best
+detections start the tracks, and at each later frame the matcher (K3,
+``N`` track queries against the frame's ``K`` detection cells) regresses
+each track, which snaps to the detection of least cost (the regression's
+distance, plus optional motion and descriptor terms); a confirmed
+sighting moves the track's state, an unconfirmed track coasts.
+:func:`frontend_detect` is the detector alone with centroid refinement.
+No command of either package reaches either; ``vo-eval`` takes the
 forward's ``points`` and ``sigmoid(scores)`` as its detections.
 """
 
@@ -44,7 +50,7 @@ from davo_tpu_torch.utils.precision import full_f32_matmuls
 from .detector import FeatureDetectionModule, refine_points_centroid
 from .matcher import FeatureMatchModule
 
-__all__ = ["FrontendOutput", "VOFrontend", "select_matches"]
+__all__ = ["FrontendOutput", "VOFrontend", "select_matches", "frontend_detect"]
 
 
 class FrontendOutput(NamedTuple):
@@ -117,7 +123,10 @@ class VOFrontend(nn.Module):
     :param device: where the module lives — the card unless the caller
         asks for another.
 
-    The gate parameters are the JAX module's; each is off at 0.
+    The gate parameters are the JAX module's; each is off at 0.  In
+    sequential tracking a candidate detection's cost is
+    ``|det - regression|^2 + track_motion_weight |det - track|^2 +
+    track_desc_weight (1 - cos(track descriptor, det descriptor))``.
     """
 
     def __init__(
@@ -135,6 +144,8 @@ class VOFrontend(nn.Module):
         centroid_refine_iters: int = 0,
         centroid_radius_px: int = 4,
         soft_gate_floor: float = 0.0,
+        track_motion_weight: float = 0.0,
+        track_desc_weight: float = 0.0,
         image_channels: int = 3,
         device: Optional[Union[str, torch.device]] = None,
         dtype: torch.dtype = torch.float32,
@@ -154,6 +165,8 @@ class VOFrontend(nn.Module):
         self.centroid_refine_iters = centroid_refine_iters
         self.centroid_radius_px = centroid_radius_px
         self.soft_gate_floor = soft_gate_floor
+        self.track_motion_weight = track_motion_weight
+        self.track_desc_weight = track_desc_weight
         self.detector = FeatureDetectionModule(image_channels, descriptor_channels)
         self.matcher = FeatureMatchModule(descriptor_channels, embedding_size, dropout)
         self.to(device=device, dtype=dtype)
@@ -168,21 +181,33 @@ class VOFrontend(nn.Module):
         generator: Optional[torch.Generator] = None,
         dropout_mask: Optional[torch.Tensor] = None,
     ) -> FrontendOutput:
-        """:param images: ``(B, M, H, W, C)`` window views.
+        """:param images: ``(B, M, H, W, C)`` window views (frames, with
+            ``track_sequence``).
         :param training: the training forward (the module docstring).
+        :param track_sequence: sequential tracking with identity chaining
+            instead of anchor-at-view-0 matching, for sequences whose
+            distant views cannot be matched directly (the JAX docstring:
+            frame-0-anchored tracks over a 16-frame orbit lose identity
+            25-67 % of the time beyond 2 frames).  An eval forward: its
+            matcher runs K3, which has no backward.
         :param generator: draws the matcher's dropout keep masks in training.
         :param dropout_mask: ``(B * (M - 1), K, K)`` boolean keep mask of the
             anchor-to-view matcher call instead of the generator's draw.
         :return: :class:`FrontendOutput`."""
         if track_sequence:
-            raise NotImplementedError("sequential tracking is not ported yet (ROADMAP.md Queue 1 item 10)")
+            if training:
+                raise ValueError("sequential tracking is an eval forward: its matcher runs K3, which has no backward")
+            with torch.no_grad():
+                return self._track_sequence(*self._detect(images, False))
         if training:
             with torch.enable_grad():
                 return self._forward(images, True, generator, dropout_mask)
         with torch.no_grad():
             return self._forward(images, False, None, None)
 
-    def _forward(self, images, training, generator, dropout_mask):
+    def _detect(self, images, training):
+        """Every view's detections: ``points (B, M, K, 2)`` (centroid-refined
+        when that is on), ``descriptors (B, M, K, D)``, ``scores (B, M, K)``."""
         b, m, h, w, c = images.shape
         feats = self.detector(images.reshape(b * m, h, w, c), training=training)
         k = feats.points.shape[1]
@@ -194,10 +219,12 @@ class VOFrontend(nn.Module):
                 iters=self.centroid_refine_iters,
                 radius_px=self.centroid_radius_px,
             )
-        points = flat_points.reshape(b, m, k, 2)
-        descriptors = feats.descriptors.reshape(b, m, k, -1)
-        scores = feats.scores.reshape(b, m, k)
-        d = descriptors.shape[-1]
+        return (flat_points.reshape(b, m, k, 2), feats.descriptors.reshape(b, m, k, -1), feats.scores.reshape(b, m, k))
+
+    def _forward(self, images, training, generator, dropout_mask):
+        b, m = images.shape[:2]
+        points, descriptors, scores = self._detect(images, training)
+        k, d = points.shape[2], descriptors.shape[-1]
 
         # one matcher call over all (M - 1) target views: the anchor's
         # features are tiled across the view axis folded into the batch
@@ -277,3 +304,72 @@ class VOFrontend(nn.Module):
             match_visibility=visibility,
             confidence=confidence,
         )
+
+    def _track_sequence(self, points, descriptors, scores) -> FrontendOutput:
+        """Sequential identity-chained tracking (see ``forward``): one K3
+        call a frame, the ``N`` tracks' queries against the frame's ``K``
+        detections."""
+        m = points.shape[1]
+        prob = torch.sigmoid(scores)
+        # the tracks start at frame 0's strongest detections (NMS'd)
+        first, vis0, idx0 = select_matches(points[:, 0:1], scores[:, 0], self.num_select, nms_radius=self.nms_radius)
+        pos = first[:, 0]  # (B, N, 2)
+        desc = torch.take_along_dim(descriptors[:, 0], idx0[..., None], dim=1)  # (B, N, D)
+        alive = vis0[:, 0]
+        if self.score_threshold > 0.0:
+            alive = alive & (torch.take_along_dim(prob[:, 0], idx0, dim=1) > self.score_threshold)
+
+        coords, valid = [pos], [alive]
+        for f in range(1, m):
+            frame_points, frame_desc = points[:, f], descriptors[:, f]
+            reg = self.matcher(
+                FeaturePoints(points=pos, descriptors=desc), FeaturePoints(points=frame_points, descriptors=frame_desc)
+            ).points_b  # (B, N, 2)
+            d2 = torch.sum(torch.square(reg[:, :, None, :] - frame_points[:, None, :, :]), dim=-1)  # (B, N, K)
+            cost = d2
+            if self.track_motion_weight > 0.0:
+                d2_prev = torch.sum(torch.square(pos[:, :, None, :] - frame_points[:, None, :, :]), dim=-1)
+                cost = cost + self.track_motion_weight * d2_prev
+            if self.track_desc_weight > 0.0:
+                t_n = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=-1, keepdim=True), min=1e-8)
+                d_n = frame_desc / torch.clamp(torch.linalg.vector_norm(frame_desc, dim=-1, keepdim=True), min=1e-8)
+                cos = torch.einsum("bnd,bkd->bnk", t_n, d_n)
+                cost = cost + self.track_desc_weight * (1.0 - cos)
+            snap_idx = torch.argmin(cost, dim=-1)  # (B, N)
+            snap_dist = torch.sqrt(torch.take_along_dim(d2, snap_idx[..., None], dim=-1)[..., 0] + 1e-12)
+            snapped = torch.take_along_dim(frame_points, snap_idx[..., None], dim=1)
+            ok = alive & (torch.abs(snapped[..., 0]) < 1.0) & (torch.abs(snapped[..., 1]) < 1.0)
+            if self.snap_radius > 0.0:
+                ok = ok & (snap_dist < self.snap_radius)
+            if self.score_threshold > 0.0:
+                ok = ok & (torch.take_along_dim(prob[:, f], snap_idx, dim=1) > self.score_threshold)
+            # confirmed sightings advance the track's state; unconfirmed
+            # tracks coast on their last state for re-acquisition
+            pos = torch.where(ok[..., None], snapped, pos)
+            desc = torch.where(ok[..., None], torch.take_along_dim(frame_desc, snap_idx[..., None], dim=1), desc)
+            coords.append(torch.where(ok[..., None], snapped, reg))
+            valid.append(ok)
+
+        matches = torch.stack(coords, dim=1)  # (B, M, N, 2)
+        return FrontendOutput(
+            points=points,
+            scores=scores,
+            matched=matches,
+            matches=matches,
+            match_visibility=torch.stack(valid, dim=1),
+            confidence=None,
+        )
+
+
+def frontend_detect(frontend: VOFrontend, images: torch.Tensor):
+    """The detector alone (eval mode) with the front end's centroid
+    refinement, exposing each detection's descriptor: the identity signal
+    that breaks spatial ties when detections are associated by distance.
+
+    :param images: ``(B, M, H, W, C)``.
+    :return: ``(points (B, M, K, 2), scores (B, M, K), descriptors
+        (B, M, K, D))``.
+    """
+    with torch.no_grad():
+        points, descriptors, scores = frontend._detect(images, False)
+    return points, scores, descriptors

@@ -9,6 +9,7 @@ from .guards import (
     safe_reciprocal,
     straight_through_max,
 )
+from .profiling import debug_nans, timed, trace
 from .masked import (
     broadcast_mask,
     masked_merge_tensors,
@@ -37,6 +38,9 @@ __all__ = [
     "safe_reciprocal",
     "straight_through_max",
     "project_vector_onto_axis",
+    "trace",
+    "timed",
+    "debug_nans",
     "broadcast_mask",
     "masked_merge_tensors",
     "masked_update",

@@ -2,9 +2,10 @@
 
 The port of ``davo_tpu/utils/guards.py``.  Each guard has a value-level
 branch that avoids inf/NaN and a matching ``torch.autograd.Function``
-(``backward`` and ``jvp``) so that no NaN leaks into gradients through the
-unused branch.  :func:`straight_through_max` is the bundle adjustment's
-depth clamp: the value of ``max`` with the derivative of the identity.
+(``backward``, ``jvp`` and a generated vmap rule, so ``torch.func.jacfwd``
+takes it) so that no NaN leaks into gradients through the unused branch.
+:func:`straight_through_max` is the bundle adjustment's depth clamp: the
+value of ``max`` with the derivative of the identity.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ def _reciprocal_or_zero(x, keep):
 
 
 class _SafeReciprocal(torch.autograd.Function):
+    generate_vmap_rule = True  # torch.func transforms (jacfwd, vmap)
+
     @staticmethod
     def forward(x):
         return _reciprocal_or_zero(x, x != 0.0)
@@ -58,6 +61,8 @@ def safe_reciprocal(x: torch.Tensor) -> torch.Tensor:
 
 class _SafeNormLast(torch.autograd.Function):
     """L2 norm over the last axis (keepdim) with derivative zero at 0."""
+
+    generate_vmap_rule = True  # torch.func transforms (jacfwd, vmap)
 
     @staticmethod
     def forward(x):
@@ -102,6 +107,8 @@ def guarded_sqrt(squared: torch.Tensor) -> torch.Tensor:
 
 
 class _InverseCurvature(torch.autograd.Function):
+    generate_vmap_rule = True  # torch.func transforms (jacfwd, vmap)
+
     @staticmethod
     def forward(step, delta_gradient):
         curvature = torch.sum(step * delta_gradient, dim=-1, keepdim=True)
@@ -155,6 +162,8 @@ def _interpolate_alpha_parts(alpha_1, alpha_2, value_1, value_2):
 
 
 class _InterpolateAlpha(torch.autograd.Function):
+    generate_vmap_rule = True  # torch.func transforms (jacfwd, vmap)
+
     @staticmethod
     def forward(alpha_1, alpha_2, value_1, value_2):
         secant, bisect, use_bisection, _ = _interpolate_alpha_parts(
@@ -205,6 +214,8 @@ def interpolate_alpha(alpha_1, alpha_2, value_1, value_2):
 
 
 class _StraightThroughMax(torch.autograd.Function):
+    generate_vmap_rule = True  # torch.func transforms (jacfwd, vmap)
+
     @staticmethod
     def forward(x, floor):
         return torch.maximum(x, floor)

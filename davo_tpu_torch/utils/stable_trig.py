@@ -178,6 +178,8 @@ def _function(name, value, derivative):
     backward and forward-mode rules multiply by ``derivative(s)``."""
 
     class _Ratio(torch.autograd.Function):
+        generate_vmap_rule = True  # torch.func transforms (jacfwd, vmap)
+
         @staticmethod
         def forward(s):
             return value(s)

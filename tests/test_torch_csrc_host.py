@@ -379,6 +379,9 @@ def test_unsupported_scene_size_is_refused(host_library):
         (1, 37, 211, 100, 8, True),  # chip_smoke's masked_wide case: D = 100, C = 8
         (1, 30, 61, 100, 2, False),  # D = 100 unmasked, K = 61: a ragged second key tile
         (1, 16, 50, 37, 8, True),  # D = 37: rows staged by 4-byte copies, C = 8
+        # sequential tracking: N = 8 track queries against a frame's 144
+        # cells, one block's 144 query rows of which 8 are real
+        (1, 8, 144, 64, 2, False),
     ],
 )
 def test_match_attention_source(host_library, b, q_len, kv_len, d, c, masked):

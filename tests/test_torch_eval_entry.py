@@ -215,17 +215,46 @@ def test_cli_eval_ate_batches(monkeypatch):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (["--config", "experiment.yaml"], "Queue 1 item 8"),
-        (["--tensorboard-dir", "tb"], "Queue 1 item 8"),
         (["--preset", "bfgs_solver_full_gradient"], "supports 'fit' only"),
     ],
 )
 def test_cli_refuses_what_is_not_ported(extra, match):
     """What the entry still refuses (basin selection and the permutation,
-    input-noise and token proposals run: ``tests/test_torch_fit.py``); a
+    input-noise and token proposals run: ``tests/test_torch_fit.py``): a
     gen-1 preset trains but has no eval, as in the JAX CLI."""
     with pytest.raises(NotImplementedError, match=match):
         cli.run(TINY_ARGS + extra)
+
+
+@pytest.mark.parametrize("flag", ["--config", "--tensorboard-dir"])
+def test_cli_eval_takes_config_and_tensorboard_dir(flag, monkeypatch, tmp_path):
+    """``--config``: a YAML's ``preset:`` replaces ``--preset`` and its
+    fields override the preset's (here the solve's iterations), the flags
+    override both; ``--tensorboard-dir`` opens the event directory."""
+    _tiny_preset(monkeypatch)
+    calls = []
+    original = t_train.make_eval_step
+
+    def spy(network, config):
+        calls.append(config)
+        return original(network, config)
+
+    monkeypatch.setattr(t_train, "make_eval_step", spy)
+    if flag == "--config":
+        path = tmp_path / "experiment.yaml"
+        path.write_text("preset: calibration_transformer_curriculum\nhidden_size: 64\nsolver:\n  iterations: 2\n")
+        extra = [flag, str(path)]
+    else:
+        extra = [flag, str(tmp_path / "tb")]
+    result = cli.run(TINY_ARGS + ["--preset", "mlp_guess"] * (flag == "--config") + extra)
+    assert np.isfinite(result["ate_rmse_mean"])
+    (config,) = calls
+    if flag == "--config":
+        assert config.solver.iterations == 2 and config.hidden_size == 32  # the flag overrides the YAML
+    else:
+        assert config.solver.iterations == 3
+        (events,) = (tmp_path / "tb").iterdir()
+        assert events.name.startswith("events.out.tfevents.")
 
 
 @pytest.mark.parametrize(
@@ -311,7 +340,7 @@ def test_cli_fit_learned_solver_and_its_checkpoint(tmp_path, capsys):
     path = tmp_path / "solver.pkl"
     argv = ["fit-learned-solver", "--platform", "cpu", "--solver-type", "direction", "--epochs", "1",
             "--batches-per-epoch", "2", "--batch-size", "16", "--hidden-size", "8", "--steps", "2",
-            "--checkpoint-file", str(path)]
+            "--checkpoint-file", str(path), "--registry-dir", str(tmp_path / "runs")]
     assert cli.main(argv) == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert lines[0]["split"] == "train" and np.isfinite(lines[0]["final_error"])
@@ -347,11 +376,12 @@ def test_cli_fit_gen1_and_eval_refusal(tmp_path, capsys):
 
     argv = ["fit", "--platform", "cpu", "--preset", "bfgs_solver_only_error_gradient", "--epochs", "1",
             "--batches-per-epoch", "2", "--batch-size", "8", "--hidden-size", "16", "--checkpoint-dir",
-            str(tmp_path)]
+            str(tmp_path), "--registry-dir", str(tmp_path / "runs")]
     assert cli.main(argv) == 0
     out = capsys.readouterr().out.strip().splitlines()
-    assert json.loads(out[0])["split"] == "train"
-    assert out[1] == f"checkpoint: {tmp_path / 'checkpoint_1.pkl'}"
+    assert set(json.loads(out[0])) == {"run_id", "config_hash", "git_sha"}  # the registered run
+    assert json.loads(out[1])["split"] == "train"
+    assert out[2] == f"checkpoint: {tmp_path / 'checkpoint_1.pkl'}"
     final = json.loads(out[-1])["final_train"]
     assert {"loss", "mean_error", "focal_length_loss", "cx_loss", "cy_loss"} <= set(final)
     assert all(np.isfinite(v) for v in final.values())

@@ -2,7 +2,8 @@
 
 * ``fit`` on a tiny experiment (3 views x 4 points, hidden 16, batch 4,
   float64, a 2-iteration unrolled solve with drop-path) logs finite
-  metrics under the JAX package's names.
+  metrics under the JAX package's names; the TensorBoard mirror writes
+  them to an event file.
 * Checkpoint and resume: 1 + 1 epochs through ``checkpoint_dir`` equal 2
   uninterrupted epochs exactly (the same history, parameters, running
   statistics and Adam moments), as ``tests/train/test_fit_resume.py``
@@ -15,7 +16,9 @@
   port's guesses from it (1e-10, float64), for the MLP head (with its
   running statistics) and the transformer head.
 * ``python -m davo_tpu_torch.cli fit --platform cpu`` (also with
-  ``--solver lbfgs``: the unrolled L-BFGS solve in the train steps) and
+  ``--solver lbfgs``: the unrolled L-BFGS solve in the train steps; its
+  run registered in a temporary registry, its manifest heading the
+  metrics file) and
   ``eval --selection basin --restart-proposals permutation --platform
   cpu`` run.
 """
@@ -67,8 +70,13 @@ def test_fit_logs_finite_metrics(tmp_path):
     assert names <= set(history["train"][0]) and names == set(history["val"][0])
     assert all(np.isfinite(v) for r in records for k, v in r.items() if k not in ("split", "epoch"))
     assert state.step == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        MetricsLogger(tensorboard_dir=str(tmp_path / "tb"))
+    # the TensorBoard mirror writes an event file of the same records
+    logger = MetricsLogger(tensorboard_dir=str(tmp_path / "tb"))
+    for record in records:
+        logger(record["split"], record["epoch"], {k: v for k, v in record.items() if k not in ("split", "epoch")})
+    logger.close()
+    (events,) = (tmp_path / "tb").iterdir()
+    assert events.name.startswith("events.out.tfevents.") and events.stat().st_size > 0
 
 
 def _flat(tree, prefix=""):
@@ -172,15 +180,20 @@ FIT_ARGS = [
 
 def test_cli_fit_on_the_cpu(tmp_path, capsys):
     metrics = tmp_path / "m.jsonl"
-    assert cli.main(FIT_ARGS + ["--checkpoint-dir", str(tmp_path), "--metrics-file", str(metrics)]) == 0
+    assert cli.main(FIT_ARGS + ["--checkpoint-dir", str(tmp_path), "--metrics-file", str(metrics),
+                                "--registry-dir", str(tmp_path / "runs")]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     final = json.loads(lines[-1])["final_val"]
     assert set(final) >= {"loss", "mean_error", "focal_length_loss"} and all(np.isfinite(list(final.values())))
     assert lines[-2].startswith("checkpoint: ") and latest_step(str(tmp_path)) == 1
-    assert len(metrics.read_text().splitlines()) == 2
+    # the run's manifest heads the file, then a train and a val record
+    run_id = json.loads(lines[0])["run_id"]
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert len(records) == 3 and records[0]["run"]["run_id"] == run_id
+    assert [r["run_id"] for r in records[1:]] == [run_id, run_id]
 
 
-def test_cli_fit_lbfgs_on_the_cpu(monkeypatch, capsys):
+def test_cli_fit_lbfgs_on_the_cpu(monkeypatch, capsys, tmp_path):
     """``fit --solver lbfgs``: the train steps run the differentiable
     L-BFGS unroll, the validation its eval solve."""
     from davo_tpu_torch.models import calibration_network
@@ -193,7 +206,7 @@ def test_cli_fit_lbfgs_on_the_cpu(monkeypatch, capsys):
         return original(*args, **kwargs)
 
     monkeypatch.setattr(calibration_network, "lbfgs_solve", spy)
-    assert cli.main(FIT_ARGS + ["--solver", "lbfgs", "--lbfgs-history", "4"]) == 0
+    assert cli.main(FIT_ARGS + ["--solver", "lbfgs", "--lbfgs-history", "4", "--registry-dir", str(tmp_path)]) == 0
     final = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["final_val"]
     assert set(final) >= {"loss", "mean_error"} and all(np.isfinite(list(final.values())))
     assert True in modes and False in modes
@@ -206,7 +219,7 @@ def test_cli_fit_resumes_from_its_checkpoint_dir(tmp_path, capsys):
 
     def final(directory, epochs):
         argv = FIT_ARGS[:FIT_ARGS.index("--epochs") + 1] + [str(epochs)] + FIT_ARGS[FIT_ARGS.index("--epochs") + 2 :]
-        assert cli.main(argv + ["--checkpoint-dir", str(directory)]) == 0
+        assert cli.main(argv + ["--checkpoint-dir", str(directory), "--registry-dir", str(tmp_path / "runs")]) == 0
         lines = capsys.readouterr().out.strip().splitlines()
         assert lines[-2] == f"checkpoint: {directory / f'checkpoint_{epochs}.pkl'}"
         assert {"params", "batch_stats", "opt_state", "step"} <= set(restore_checkpoint(str(directory), epochs))

@@ -276,13 +276,18 @@ def test_cli_fit_frontend_checkpoint_reads_in_jax_and_the_port(tmp_path, capsys)
     metrics = tmp_path / "m.jsonl"
     argv = ["fit-frontend", "--platform", "cpu", "--epochs", "1", "--batch-size", "2", "--batches-per-epoch", "1",
             "--image-size", str(SIZE), "--points", "6", "--checkpoint-dir", str(tmp_path / "ckpt"),
-            "--metrics-file", str(metrics)]
+            "--metrics-file", str(metrics), "--registry-dir", str(tmp_path / "runs")]
     assert cli.main(argv) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     final = json.loads(lines[-1])["final"]
     assert "match_inlier_rate" in final and all(np.isfinite(list(final.values())))
     assert lines[-2] == f"checkpoint: {tmp_path / 'ckpt' / 'checkpoint_1.pkl'}"
-    assert len(metrics.read_text().splitlines()) == 2
+    # the registered run's manifest heads the file (and sits in the
+    # checkpoint directory), then a train and a val record
+    records = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert len(records) == 3 and records[0]["run"]["tags"] == {"command": "fit-frontend"}
+    run_manifest = json.loads((tmp_path / "ckpt" / "run_manifest.json").read_text())
+    assert run_manifest["run_id"] == records[0]["run"]["run_id"] == records[2]["run_id"]
     arch = json.loads((tmp_path / "ckpt" / "frontend_config.json").read_text())
     assert arch == {"num_select": 6, "descriptor_channels": 64, "embedding_size": 64, "image_size": SIZE}
 

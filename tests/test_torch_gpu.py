@@ -5,8 +5,10 @@ elements, K3 at 15 and 3 problems; K1 at the windows pipeline's stacked
 network and one of the front end on the card against the CPU's; the
 L-BFGS eval solve on the card (through K2) against the CPU's; and the
 incremental-VO accumulator on clean inputs, the card in float32 against
-the CPU in float64; and the windows pipeline's oracle-guess recovery on
-the card.
+the CPU in float64; the windows pipeline's oracle-guess recovery on
+the card; the distorted calibration's LM on the card against the CPU
+(float64, 1e-9) and ``eval-distorted``; and sequential tracking, K3 at 8
+and 32 track queries against 144 cells.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -264,6 +266,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         (4, 30, 50, 37, 2),  # D % 4 != 0: rows staged by 4-byte copies
         (15, 144, 144, 64, 2),  # vo-eval: the whole sequence's 15 anchor-to-view problems
         (3, 144, 144, 64, 2),  # vo-eval: a bootstrap window's 3
+        (4, 8, 144, 64, 2),  # sequential tracking: 8 track queries against a frame's 144 cells
+        (4, 32, 144, 64, 2),
     ],
 )
 def test_match_attention_kernel_matches_plain(cuda_device, b, q_len, kv_len, d, c):
@@ -516,3 +520,34 @@ def test_gen1_protocol_solve_on_the_card_launches_k1_and_matches_the_cpu(cuda_de
     for side in ("card", "cpu"):
         assert result[side]["mean_objective_solved"] < result[side]["mean_objective_start"], side
         assert result[side]["share_lowered"] >= 0.9, side
+
+
+@pytest.mark.gpu
+def test_distorted_refinement_on_the_card_matches_the_cpu(cuda_device):
+    """refine_distorted on 16 scenes in float64, the card against the CPU
+    to 1e-9 (chip_smoke.distorted_card_against_cpu), with TF32 off; and
+    cli eval-distorted on the card at a small size, finite and within the
+    JAX float32 test's bound."""
+    import chip_smoke
+    from davo_tpu_torch import cli
+
+    result = chip_smoke.distorted_card_against_cpu(cuda_device)
+    assert result["max_abs_err"] <= 1e-9 and result["max_param_error_card"] < 1e-6
+    assert not torch.backends.cuda.matmul.allow_tf32
+    printed = cli.run(["eval-distorted", "--batches", "2", "--batch-size", "8"])
+    assert all(np.isfinite(v) for v in printed.values()) and printed["worst_max_param_error"] < 5e-3
+
+
+@pytest.mark.gpu
+def test_track_sequence_on_the_card_launches_k3_once_a_frame(cuda_device):
+    """Sequential tracking of chip_smoke's orbits (4 sequences of 16 frames
+    at 96 px, frontend_v4 with vo_eval's gates): K3 once a frame after the
+    first, at 8 track queries against 144 cells; finite matches."""
+    import chip_smoke
+
+    frontend, images, _, _ = chip_smoke.track_inputs(cuda_device)
+    build.reset_launch_counts()
+    out = frontend(images, track_sequence=True)
+    torch.cuda.synchronize()
+    assert build.launch_counts["match_attention"] == images.shape[1] - 1
+    assert out.matches.shape == (images.shape[0], images.shape[1], 8, 2) and bool(torch.isfinite(out.matches).all())

@@ -12,7 +12,9 @@ confidence gate; greedy NMS with centroid refinement.  ``points``,
 1e-9 and ``match_visibility`` is identical.  On the CPU the port's matcher
 runs K3's plain version and the JAX package its jnp attention, which agree
 on unmasked keys.  The eval metrics (losses, ``match_inlier_rate``) agree
-to 1e-9.
+to 1e-9.  Sequential tracking (``track_sequence=True``) over the same two
+4-frame sequences, with no gates and with snap, score, motion and
+descriptor terms, and ``frontend_detect``, agree to 1e-9 as well.
 """
 
 import jax
@@ -103,10 +105,55 @@ def test_eval_metrics_match_jax(windows_and_images, jax_variables):
     assert float(metrics["match_inlier_rate"]) > 0.8  # the trained weights match
 
 
-def test_track_sequence_is_refused():
+TRACK_GATES = {
+    "off": {},
+    "snap_score_motion_desc": dict(snap_radius=0.12, score_threshold=0.2, track_motion_weight=1.0,
+                                   track_desc_weight=0.05, nms_radius=0.1),
+}
+
+
+@pytest.mark.parametrize("gates", list(TRACK_GATES.values()), ids=list(TRACK_GATES))
+def test_track_sequence_matches_jax(gates, windows_and_images, jax_variables):
+    """Sequential tracking over the two 4-frame sequences: frame 0's top 8
+    (NMS'd with the gates), then K3's plain version at 8 track queries
+    against each frame's 144 cells, the snap cost's argmin (float64: no
+    near-tie flips), the gates and coasting tracks."""
+    _, images = windows_and_images
+    j_out = JVOFrontend(**gates).apply(jax_variables, jnp.asarray(images), track_sequence=True)
+    frontend, _ = load_frontend(device="cpu", dtype=torch.float64, **gates)
+    out = frontend(torch.tensor(images), track_sequence=True)
+    assert out.matches.shape == (2, 4, 8, 2) and out.confidence is None
+    for name in ("points", "scores", "matched", "matches"):
+        np.testing.assert_allclose(
+            to_numpy(getattr(out, name)), np.asarray(getattr(j_out, name)), rtol=TOL, atol=TOL, err_msg=name
+        )
+    np.testing.assert_array_equal(to_numpy(out.match_visibility), np.asarray(j_out.match_visibility))
+    if gates:  # the gates acted: some sightings unconfirmed, some confirmed
+        visibility = to_numpy(out.match_visibility)[:, 1:]
+        assert visibility.any() and not visibility.all()
+
+
+def test_track_sequence_is_an_eval_forward():
+    """The tracking matcher runs K3, which has no backward: a training
+    forward with tracking is refused rather than run without gradients."""
     frontend, _ = load_frontend(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        frontend(torch.zeros(1, 2, 96, 96, 3), track_sequence=True)
+    with pytest.raises(ValueError, match="eval forward"):
+        frontend(torch.zeros(1, 2, 96, 96, 3), training=True, track_sequence=True)
+
+
+def test_frontend_detect_matches_jax(windows_and_images, jax_variables):
+    """The detector alone with centroid refinement: points, scores and
+    descriptors to 1e-9."""
+    from davo_tpu.models.vo_frontend import frontend_detect as j_frontend_detect
+    from davo_tpu_torch.models import frontend_detect
+
+    _, images = windows_and_images
+    want = j_frontend_detect(JVOFrontend(centroid_refine_iters=2), jax_variables, jnp.asarray(images))
+    frontend, _ = load_frontend(device="cpu", dtype=torch.float64, centroid_refine_iters=2)
+    got = frontend_detect(frontend, torch.tensor(images))
+    assert got[2].shape == (2, 4, 144, 64)
+    for name, g, w in zip(("points", "scores", "descriptors"), got, want):
+        np.testing.assert_allclose(to_numpy(g), np.asarray(w), rtol=TOL, atol=TOL, err_msg=name)
 
 
 def test_nfold_matcher_matches_jax():
