@@ -12,8 +12,9 @@ Phases, each printed as one JSON line with its seconds:
             shape (B = 16384), the trainer's validation batch (B = 64),
             vo-eval's bootstrap solve (B = 8), its stacked windows (B = 56),
             K1 at correct_scale_drift's P = 15, B = 1, at the learned
-            solvers' comparison (B = 256) and at the gen-1 protocol solve's
-            P = 44, B = 64: error
+            solvers' comparison (B = 256), at the gen-1 protocol solve's
+            P = 44, B = 64 and at eval-seq's default 32 points (P = 117,
+            its two-pass route, B = 5): error
             against the stated tolerance, time by CUDA events (``ms``: the
             wrapper's launches one by one from the host, as the solver makes
             them; ``graph_ms``: the same launches replayed from a CUDA graph,
@@ -31,6 +32,10 @@ Phases, each printed as one JSON line with its seconds:
    k4       the value + directional derivative kernel against its plain
             version at B = 16384 and 8192, with an element that sees nothing
             and elements with f <= 0, as k2;
+   k2, k4 at other scene sizes  the general kernels every size but (4, 8)
+            takes: eval-seq's default (4, 32) at its batch (B = 5) and
+            (4, 32), (3, 8), (6, 16) at B = 8192, each checked and timed as
+            above;
    k1v      the K1' orderings (rowloop, rowloop2; 16 elements per block)
             against their plain versions at B = 16384, as k1, on a
             symmetric carry and on one that is not (K1' reduces y'H over
@@ -119,7 +124,8 @@ Phases, each printed as one JSON line with its seconds:
             (each > 0); then the accumulator on fixed clean inputs (10
             frames, junk detections, every robustness option), the card in
             float32 against the CPU in float64;
-17. vo_windows  the JAX CLI's vo-eval default (windows pipeline, oracle
+17. vo_windows  (in the same process, after vo_eval) the JAX CLI's
+            vo-eval default (windows pipeline, oracle
             matches, global stitch, refinement) at v6_verified's width, trial 0
             (a generator seeded 100): the 7 windows solved in one stacked call
             (K1 and K2 at 56 elements), the refined ATE, K1/K2 launches (each
@@ -137,7 +143,10 @@ Phases, each printed as one JSON line with its seconds:
             compare mode (TUM estimate against ground truth), oracle VO and
             learned VO (v6_verified, 8 points, windows of 4, 1 restart, the
             front end with eval-seq's gates; K1-K3 launched) along the KITTI
-            file;
+            file; and learned VO at the CLI's default 32 points (v6's
+            architecture at 4 x 32 with random weights from a seed, a
+            32-point front end after one fit-frontend step; K1 at P = 117,
+            K2 at (4, 32) and K3 launched, its ATE and RPE finite);
 19. learned_solver  the trained MLP solver of
             artifacts/learned_solver_descent_v2.pkl (hidden 256, 5 recurrent
             steps) against BFGS at 5 and 20 iterations on 2 batches of 256
@@ -170,7 +179,14 @@ Phases, each printed as one JSON line with its seconds:
             back by runs list/show/compare; presets; a profiling.trace of one
             served BFGS iteration naming K1 and K2; the served network's
             weight_summaries;
-24. the kernels line (with each kernel's launches on every path that ran
+24. multidevice  the multi-device layer on a one-rank NCCL group (the
+            machine has one card): distributed_schur_ba and
+            distributed_schur_ba_2d (1 x 1) against schur_ba_solve (float64,
+            1e-12), distributed_stitch_windows against the same function on
+            a gloo group on the CPU (1e-12), one make_dp_train_step step
+            against make_train_step (float32, 1e-6); the collectives each
+            issued;
+25. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -182,8 +198,8 @@ learned-match window path, K4 from the fused-objective entry points, K1'
 from the tuning sweep, K2 from the L-BFGS eval, K3 from the front end's
 validation (its train steps read 0), K1-K3 from the vo-eval trial,
 K1 and K2 from the windows trial, K1 from correct_scale_drift, K1-K3
-from the windows trial on learned matches and from eval-seq's learned VO,
-K1 from the learned solvers' comparisons and from the gen-1 protocol
+from the windows trial on learned matches and from eval-seq's learned VO
+(at 8 and at 32 points), K1 from the learned solvers' comparisons and from the gen-1 protocol
 solve, K3 from the sequential tracking.
 """
 
@@ -353,6 +369,29 @@ EVAL_SEQ_CASES = {
                 V6_CHECKPOINT, *V6_WIDTH, "--points", "8", "--window", "4", "--restarts", "1", "--frontend-checkpoint",
                 FRONTEND_NPZ],
 }
+# eval-seq's learned VO at the CLI's default --points 32 (and --window 4):
+# every checkpoint in the repo is of 8 points (frontend_v4 selects 8; with
+# it the JAX CLI raises at 32 points too), so the guess network is
+# v6_verified's architecture at 4 x 32 (P = 117) with random weights from a
+# seed, pickled as the JAX package's numpy checkpoint, and the front end
+# frontend_v4's architecture at 32 points after one fit-frontend step from
+# a flax-style init (96 px, batch 2); K1 at P = 117, K2 at (4, 32) and K3
+# on the 12-frame KITTI file's 5 windows (1 restart each)
+EVAL_SEQ_POINTS, EVAL_SEQ_WINDOWS, EVAL_SEQ_P = 32, 5, 3 + 3 * 32 + 6 * (M - 1)
+EVAL_SEQ_32_ARGS = ["eval-seq", "--gt", os.path.join(FIXTURES, "kitti_mini_00.txt"), "--format", "kitti", *V6_WIDTH,
+                    "--restarts", "1"]
+EVAL_SEQ_FRONTEND_ARGS = ["fit-frontend", "--epochs", "1", "--batch-size", "2", "--batches-per-epoch", "1",
+                          "--image-size", "96", "--points", str(EVAL_SEQ_POINTS)]
+# scene sizes the kernels take by their general path: eval-seq's (4, 32) at
+# its batch and at the serve batch, 3 views, 96 terms in three chunks
+GENERAL_SCENES = ((4, 32), (3, 8), (6, 16))
+# the multi-device layer on a one-rank NCCL group (the machine has one
+# card): tests/parallel/test_schur.py's problem (4 views, 16 points), 8 LM
+# iterations, float64; an 8-frame stitch; one data-parallel step of the
+# MLP head in float32 at batch 64; the card's solves against the
+# single-device solver to 1e-12, the stitch against the same function on
+# a gloo group on the CPU to 1e-12, the step against make_train_step to 1e-6
+MULTIDEVICE_SOLVE_TOL, MULTIDEVICE_STEP_TOL = 1e-12, 1e-6
 # the learned solvers: artifacts/learned_solver_descent_v2.pkl (the
 # recurrent MLP solver, hidden 256, 5 steps, trained with the descent loss)
 # against BFGS at 5 and 20 iterations (16 probes a line search) on 2
@@ -416,10 +455,12 @@ TRACK_GATES = dict(nms_radius=0.1, snap_radius=0.12, cycle_threshold=0.15, quali
 INFRA_CONFIG = os.path.join(REPO, "configurations", "mlp_guess_config.yaml")
 JAX_PRESETS = ["bfgs_solver_full_gradient", "bfgs_solver_only_error_gradient", "calibration_from_oracle_matches",
                "calibration_transformer_curriculum", "mlp_guess"]
+# the phases run in a side process beside eval_v4 ... frontend_train
+SIDE_PHASES = ("vo_eval", "vo_windows")
 # the paths whose launch counts the kernels line reports
 LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval",
-                "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned", "learned_solver",
-                "learned_solver_direction", "gen1_protocol_solve", "track_sequence")
+                "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned", "eval_seq_learned_32",
+                "learned_solver", "learned_solver_direction", "gen1_protocol_solve", "track_sequence")
 
 
 def emit(phase, **fields):
@@ -531,14 +572,17 @@ def k1_inputs(batch, p, h_dtype, device, seed, asymmetry=0.0):
     return h_t, s.contiguous(), y.contiguous(), grad.contiguous(), updating
 
 
-def k1_symbol(h_dtype, variant_symbol=None):
-    """The mangled-name fragment of the kernel a K1 phase times at P = 45
-    and an even batch: K1's register route (one float32 element or a
-    bfloat16 pair a thread), or K1''s kernel in the ordering
-    ``variant_symbol`` (16 elements a block: one element a thread)."""
+def k1_symbol(h_dtype, variant_symbol=None, p=3 + 3 * N + 6 * (M - 1)):
+    """The mangled-name fragment of the kernel a K1 phase times at an even
+    batch: K1's register route (P <= 48: one float32 element or a bfloat16
+    pair a thread) or its two-pass route (P > 48), or K1''s kernel in the
+    ordering ``variant_symbol`` (16 elements a block: one element a
+    thread)."""
     type_code = "13__nv_bfloat16" if h_dtype == torch.bfloat16 else "f"
     if variant_symbol:
         return f"{variant_symbol}{type_code}Li1E"
+    if p > 48:
+        return f"bfgs_update_two_pass_kernelI{type_code}E"
     return f"bfgs_update_rows_kernelI{type_code}Li{2 if h_dtype == torch.bfloat16 else 1}E"
 
 
@@ -587,7 +631,7 @@ def k1_phase(batch, h_dtype, device, variant=None, p=3 + 3 * N + 6 * (M - 1)):
         batch=batch, p=p, h_dtype=str(h_dtype).replace("torch.", ""), checks=checks, max_abs_err=worst,
         ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / ms, GBps=bytes_moved / ms / 1e6, library_ms=None,
-        ptxas=ptxas_resources(build.build_log.get("ptxas", []), k1_symbol(h_dtype, symbol)),
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), k1_symbol(h_dtype, symbol, p)),
     )
 
 
@@ -618,16 +662,16 @@ def k2_operations(m, n):
     return m * n * 158 + (m - 1) * n * 104 + (m - 1) * 63 + 5 * p + 20
 
 
-def k2_inputs(batch, device, seed):
+def k2_inputs(batch, device, seed, m=M, n=N):
     from davo_tpu_torch.data import SceneConfig, generate_batch
 
     g = torch.Generator(device).manual_seed(seed)
-    scenes = generate_batch(g, batch, SceneConfig(num_views=M, num_points=N), device=device)
-    p = 3 + 3 * N + 6 * (M - 1)
+    scenes = generate_batch(g, batch, SceneConfig(num_views=m, num_points=n), device=device)
+    p = 3 + 3 * n + 6 * (m - 1)
     params = 0.3 * torch.randn(batch, p, generator=g, device=device)
     params[:, 0] += 1.0
-    params[:, 5 : 3 + 3 * N : 3] += 1.0
-    r0 = 3 + 3 * N + 3 * (M - 1)
+    params[:, 5 : 3 + 3 * n : 3] += 1.0
+    r0 = 3 + 3 * n + 3 * (m - 1)
     params[: batch // 8, r0:] *= 1e-3  # small angles: the Taylor branches
     params[batch // 8 : batch // 4, 0] -= 2.0  # negative focal: the exp branch
     vis = scenes.visibility_mask.float()
@@ -636,30 +680,36 @@ def k2_inputs(batch, device, seed):
     return params.contiguous(), u, v, vis.permute(1, 2, 0).contiguous()
 
 
-def k2_phase(batch, device):
+def k2_symbol(kernel, m, n):
+    """The mangled-name fragment of K2's or K4's kernel at (m, n): the
+    (4, 8) instantiation, or the general kernel every other size takes."""
+    return f"{kernel}ILi{m}ELi{n}E" if (m, n) == (M, N) else f"{kernel[:-len('kernel')]}general_kernel"
+
+
+def k2_phase(batch, device, m=M, n=N):
     from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.calibration_obj import _value_and_grad_plain, calibration_value_and_grad
 
-    params, u, v, vis = k2_inputs(batch, device, seed=batch + 1)
+    params, u, v, vis = k2_inputs(batch, device, seed=batch + 1, m=m, n=n)
     k_err, k_grad = calibration_value_and_grad(params, u, v, vis)
     torch.cuda.synchronize()
     p_err, p_grad = _value_and_grad_plain(params, u, v, vis)
-    # float32 sums of 32 angles / gradient terms in another order
+    # float32 sums of M N angles / gradient terms in another order
     checks = {"error": check("K2 error", k_err, p_err, 1e-5), "gradient": check("K2 gradient", k_grad, p_grad, 1e-4)}
     # the inputs (6 MB at B = 8192) stay in the L2 across the repeats: warm
     ms = cuda_ms(lambda: calibration_value_and_grad(params, u, v, vis), reps=100)
     graph_ms = graph_replay_ms(lambda: calibration_value_and_grad(params, u, v, vis), reps=100)
     plain_ms = cuda_ms(lambda: _value_and_grad_plain(params, u, v, vis), reps=10, warmup=1)
     p = params.shape[1]
-    bytes_moved = batch * 4 * (p + 3 * M * N + 1 + p)
-    operations = batch * k2_operations(M, N)
+    bytes_moved = batch * 4 * (p + 3 * m * n + 1 + p)
+    operations = batch * k2_operations(m, n)
     bound_ms, bound_by = bound(bytes_moved, operations)
     return dict(
-        batch=batch, checks=checks,
+        batch=batch, scene=[m, n], p=p, checks=checks,
         max_abs_err=max(checks["error"]["max_abs_err"], checks["gradient"]["max_abs_err"]),
         ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        share_of_bound=bound_ms / ms, library_ms=None, operations_per_element=k2_operations(M, N),
-        ptxas=ptxas_resources(build.build_log.get("ptxas", []), f"calibration_vg_kernelILi{M}ELi{N}E"),
+        share_of_bound=bound_ms / ms, library_ms=None, operations_per_element=k2_operations(m, n),
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), k2_symbol("calibration_vg_kernel", m, n)),
     )
 
 
@@ -676,11 +726,11 @@ def k4_operations(m, n):
     return m * n * 187 + (m - 1) * n * 107 + (m - 1) * 75 + 4 * (3 * n + 3 * (m - 1)) + 20
 
 
-def k4_phase(batch, device):
+def k4_phase(batch, device, m=M, n=N):
     from davo_tpu_torch.ops import build
     from davo_tpu_torch.ops.calibration_obj import _value_and_dirderiv_plain, calibration_value_and_dirderiv
 
-    params, u, v, vis = k2_inputs(batch, device, seed=batch + 2)  # small angles, f <= 0 on 1/8
+    params, u, v, vis = k2_inputs(batch, device, seed=batch + 2, m=m, n=n)  # small angles, f <= 0 on 1/8
     p = params.shape[1]
     direction = torch.randn(batch, p, generator=torch.Generator(device).manual_seed(batch + 3), device=device)
     vis[:, :, 0] = 0.0  # element 0 sees nothing
@@ -689,7 +739,7 @@ def k4_phase(batch, device):
     k_err, k_dphi = calibration_value_and_dirderiv(*args)
     torch.cuda.synchronize()
     p_err, p_dphi = _value_and_dirderiv_plain(*args)
-    # float32 sums of 32 angles (and of their tangents) in another order
+    # float32 sums of M N angles (and of their tangents) in another order
     checks = {"error": check("K4 error", k_err, p_err, 1e-5), "dphi": check("K4 dphi", k_dphi, p_dphi, 1e-4)}
     if not (k_err[0].item() == 0.0 and k_dphi[0].item() == 0.0):
         raise AssertionError(f"K4: an element that sees nothing gave {k_err[0].item()}, {k_dphi[0].item()}")
@@ -698,14 +748,15 @@ def k4_phase(batch, device):
     plain_ms = cuda_ms(lambda: _value_and_dirderiv_plain(*args), reps=10, warmup=1)
     # each element reads its parameters, direction and M N observations
     # (u, v, vis) once and writes its error and dphi
-    bytes_moved = batch * 4 * (2 * p + 3 * M * N + 2)
-    operations = batch * k4_operations(M, N)
+    bytes_moved = batch * 4 * (2 * p + 3 * m * n + 2)
+    operations = batch * k4_operations(m, n)
     bound_ms, bound_by = bound(bytes_moved, operations)
     return dict(
-        batch=batch, checks=checks, max_abs_err=max(checks["error"]["max_abs_err"], checks["dphi"]["max_abs_err"]),
+        batch=batch, scene=[m, n], p=p, checks=checks,
+        max_abs_err=max(checks["error"]["max_abs_err"], checks["dphi"]["max_abs_err"]),
         ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-        library_ms=None, operations_per_element=k4_operations(M, N),
-        ptxas=ptxas_resources(build.build_log.get("ptxas", []), f"calibration_dirderiv_kernelILi{M}ELi{N}E"),
+        library_ms=None, operations_per_element=k4_operations(m, n),
+        ptxas=ptxas_resources(build.build_log.get("ptxas", []), k2_symbol("calibration_dirderiv_kernel", m, n)),
     )
 
 
@@ -2187,16 +2238,44 @@ def vo_windows_phase(device):
     )
 
 
+def random_checkpoint(path, num_views, num_points, seed=0):
+    """v6_verified's architecture (embed 384, 8 layers, 8 heads) at
+    ``num_views`` x ``num_points`` with flax-style random weights drawn from
+    ``seed``, pickled as the JAX package's numpy checkpoint."""
+    import pickle
+
+    from davo_tpu_torch.models import state_dict_to_flax
+    from davo_tpu_torch.train import CalibrationExperiment
+
+    network = CalibrationExperiment(num_views=num_views, num_points=num_points, hidden_size=384, head="transformer",
+                                    transformer_layers=8, transformer_heads=8).build_network(
+        "cpu", generator=torch.Generator().manual_seed(seed))
+    params, batch_stats = state_dict_to_flax(network.state_dict(), num_heads=8)
+    with open(path, "wb") as f:
+        pickle.dump({"params": params, "batch_stats": batch_stats}, f)
+
+
 def eval_seq_phase(device):
     """python -m davo_tpu_torch.cli eval-seq on the fixtures: compare mode,
-    oracle VO and learned VO along the KITTI file (launches counted from 0
-    just before it: K1, K2, K3; the seconds of its window solves apart);
-    every figure finite."""
+    oracle VO and learned VO along the KITTI file through the front end, at
+    8 points and at the CLI's default 32 (launches counted from 0 just
+    before each: K1, K2, K3; the seconds of its window solves apart); every
+    figure finite."""
     from davo_tpu_torch import cli
     from davo_tpu_torch.ops import build
 
     out, guess_fn = {}, cli._guess_fn
-    for name, argv in EVAL_SEQ_CASES.items():
+    scratch = tempfile.TemporaryDirectory()
+    checkpoint_32 = os.path.join(scratch.name, f"random_4x{EVAL_SEQ_POINTS}.pkl")
+    random_checkpoint(checkpoint_32, 4, EVAL_SEQ_POINTS)
+    frontend_32 = os.path.join(scratch.name, "frontend")
+    code, lines = _cli_lines(EVAL_SEQ_FRONTEND_ARGS + ["--checkpoint-dir", frontend_32, "--registry-dir",
+                                                      os.path.join(scratch.name, "runs")])
+    if code != 0:
+        raise AssertionError(f"eval_seq: fit-frontend at {EVAL_SEQ_POINTS} points exited {code}: {lines[-3:]}")
+    cases = dict(EVAL_SEQ_CASES, learned_32=EVAL_SEQ_32_ARGS + ["--checkpoint", checkpoint_32, "--frontend-checkpoint",
+                                                               frontend_32])
+    for name, argv in cases.items():
         totals = {"window_solves": 0.0}
         cli._guess_fn = lambda net: _timed(guess_fn(net), totals, "window_solves")
         build.reset_launch_counts()
@@ -2210,9 +2289,172 @@ def eval_seq_phase(device):
                          seconds_window_solves=totals["window_solves"])
         if not all(math.isfinite(v) for v in result.values()):
             raise AssertionError(f"eval_seq {name}: not finite {result}")
-    for counter in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
-        if not out["learned"]["launches"].get(counter, 0) > 0:
-            raise AssertionError(f"eval_seq learned: {counter} was never launched ({out['learned']['launches']})")
+    scratch.cleanup()
+    for name in ("learned", "learned_32"):
+        for counter in ("bfgs_update", "calibration_value_and_grad", "match_attention"):
+            if not out[name]["launches"].get(counter, 0) > 0:
+                raise AssertionError(f"eval_seq {name}: {counter} was never launched ({out[name]['launches']})")
+    for key in ("rmse", "rpe_trans_rmse"):
+        if key not in out["learned_32"]["metrics"]:
+            raise AssertionError(f"eval_seq learned_32: no {key} in {out['learned_32']['metrics']}")
+    return out
+
+
+# ---------------------------------------------------- multi-device ----
+
+
+def multidevice_problem(device):
+    """tests/parallel/test_schur.py's problem (4 views, 16 points, start
+    noise 0.02), float64, drawn by a CPU generator."""
+    from davo_tpu_torch.geometry import rotate_vector_axis_angle
+    from davo_tpu_torch.parallel import BAObservations, BAProblem
+
+    g = torch.Generator().manual_seed(0)
+    m, n = 4, 16
+    points = torch.cat([2.0 * torch.randn(n, 2, generator=g, dtype=torch.float64),
+                        8.0 + torch.randn(n, 1, generator=g, dtype=torch.float64)], dim=-1)
+    poses = torch.zeros(m, 6, dtype=torch.float64)
+    poses[1:, 0:3] = 0.05 * torch.randn(m - 1, 3, generator=g, dtype=torch.float64)
+    poses[1:, 3:5] = 0.5 * torch.randn(m - 1, 2, generator=g, dtype=torch.float64)
+    intrinsics = torch.tensor([1.4, 0.05, -0.05], dtype=torch.float64)
+    rel = rotate_vector_axis_angle(points[None], poses[:, None, 0:3]) + poses[:, None, 3:6]
+    pixels = torch.stack([1.4 * rel[..., 0] / rel[..., 2] + 0.05, 1.4 * rel[..., 1] / rel[..., 2] - 0.05], dim=-1)
+    start = BAProblem(intrinsics + 0.02 * torch.randn(3, generator=g, dtype=torch.float64),
+                      poses + torch.cat([torch.zeros(1, 6, dtype=torch.float64),
+                                         0.02 * torch.randn(m - 1, 6, generator=g, dtype=torch.float64)]),
+                      points + 0.02 * torch.randn(n, 3, generator=g, dtype=torch.float64))
+    obs = BAObservations(pixels, torch.ones(m, n, dtype=torch.bool))
+    return (BAProblem(*(x.to(device) for x in start)), BAObservations(*(x.to(device) for x in obs)))
+
+
+def multidevice_windows(device):
+    """8 frames of vo_eval's orbit as windows of 4 at stride 2, each in its
+    own gauge scale with 0.01 noise, float64 (CPU draws)."""
+    from davo_tpu_torch.train import vo_eval as V
+
+    frames, window = 8, 4
+    config = V.TrajectoryConfig(num_frames=frames, window=window, dtype=torch.float64)
+    poses = V.generate_trajectory(torch.Generator().manual_seed(5), config, device="cpu")[0]
+    starts = V._window_starts(frames, window, window - 2)
+    g = torch.Generator().manual_seed(6)
+    window_poses = []
+    for s in starts:
+        rel = V._to_window_frame(poses[s : s + window], poses[s])
+        rel[:, 3:6] *= math.exp(0.3 * float(torch.randn(1, generator=g, dtype=torch.float64)))
+        rel[1:] += 0.01 * torch.randn(window - 1, 6, generator=g, dtype=torch.float64)
+        window_poses.append(rel.to(device))
+    return starts, window_poses, frames
+
+
+def multidevice_step(device, mesh):
+    """One data-parallel step of the MLP head (hidden 64, batch 64, a
+    3-iteration unrolled solve with drop-path 0.1, float32) on ``mesh``
+    against make_train_step from the same weights and generator: the
+    metrics and the gradients each step applied, normwise."""
+    from davo_tpu_torch.parallel import make_dp_train_step
+    from davo_tpu_torch.solve import BFGSConfig
+    from davo_tpu_torch.train import CalibrationExperiment, create_train_state, make_train_step
+
+    config = CalibrationExperiment(num_views=M, num_points=N, hidden_size=64, batch_size=64, warmup_steps=1,
+                                   solver=BFGSConfig(iterations=3, training_iterations=3, line_search_iterations=8,
+                                                     drop_path_p=0.1))
+    out = []
+    for make in (lambda state: make_dp_train_step(state, config, mesh), lambda state: make_train_step(state, config)):
+        state = create_train_state(config, device, generator=torch.Generator().manual_seed(7))
+        applied = {}
+        apply = state.apply_gradients
+
+        def recording_apply(gradients, apply=apply, applied=applied):
+            applied["gradients"] = torch.cat([g.reshape(-1) for g in gradients]).clone()
+            apply(gradients)
+
+        state.apply_gradients = recording_apply
+        metrics = make(state)(torch.Generator(device).manual_seed(8))
+        out.append((metrics, applied["gradients"], torch.cat([b.reshape(-1) for b in state.network.buffers()
+                                                              if b.is_floating_point()])))
+    (metrics, grads, stats), (ref_metrics, ref_grads, ref_stats) = out
+    tol = MULTIDEVICE_STEP_TOL
+    return dict(
+        metrics={k: float(v) for k, v in metrics.items()},
+        checks=dict(gradients=check("dp step gradients", grads, ref_grads, tol),
+                    running_statistics=check("dp step running statistics", stats, ref_stats, tol),
+                    **{k: check(f"dp step {k}", metrics[k], ref_metrics[k], tol) for k in ref_metrics}),
+    )
+
+
+def multidevice_phase(device):
+    """The multi-device layer on a one-rank NCCL group (initialize_distributed
+    at a localhost address, make_mesh on the card): distributed_schur_ba
+    and distributed_schur_ba_2d (1 x 1) against schur_ba_solve on the card,
+    distributed_stitch_windows against itself on a one-rank gloo group on
+    the CPU, one make_dp_train_step step against make_train_step, and the
+    collectives each issued (by wrapping dist.all_reduce and
+    dist.all_gather)."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from davo_tpu_torch.parallel import (
+        SchurConfig,
+        distributed_schur_ba,
+        distributed_schur_ba_2d,
+        distributed_stitch_windows,
+        initialize_distributed,
+        make_mesh,
+        schur_ba_solve,
+    )
+
+    recorded = []
+    all_reduce, all_gather = dist.all_reduce, dist.all_gather
+
+    def recording_all_reduce(tensor, *args, group=None, **kwargs):
+        recorded.append(("all_reduce", dist.get_world_size(group), tensor.numel() * tensor.element_size()))
+        return all_reduce(tensor, *args, group=group, **kwargs)
+
+    def recording_all_gather(tensor_list, tensor, *args, group=None, **kwargs):
+        recorded.append(("all_gather", dist.get_world_size(group), tensor.numel() * tensor.element_size()))
+        return all_gather(tensor_list, tensor, *args, group=group, **kwargs)
+
+    def collectives(fn):
+        recorded.clear()
+        dist.all_reduce, dist.all_gather = recording_all_reduce, recording_all_gather
+        try:
+            result = fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        return result, list(recorded)
+
+    with socket.socket() as sock:  # a free port on this machine's loopback
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    rank = initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=device)
+    out = dict(rank=rank, backend=dist.get_backend(), init_seconds=time.perf_counter() - t0)
+    try:
+        mesh = make_mesh(device=device)
+        mesh_2d = init_device_mesh(device.type, (1, 1), mesh_dim_names=("kf", "pt"))
+        problem, obs = multidevice_problem(device)
+        config = SchurConfig(iterations=8, damping=1e-4)
+        single = schur_ba_solve(problem, obs, config)
+        for name, fn in (("schur_1d", lambda: distributed_schur_ba(problem, obs, mesh, config)),
+                         ("schur_2d", lambda: distributed_schur_ba_2d(problem, obs, mesh_2d, config))):
+            solved, issued = collectives(fn)
+            out[name] = dict(collectives=issued, **{
+                k: check(f"{name} {k}", getattr(solved, k), getattr(single, k), MULTIDEVICE_SOLVE_TOL)
+                for k in ("intrinsics", "poses", "points")})
+        starts, window_poses, frames = multidevice_windows(device)
+        stitched, issued = collectives(lambda: distributed_stitch_windows(starts, window_poses, frames, mesh))
+        cpu_mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cpu", mesh_dim_names=("data",))
+        on_cpu = distributed_stitch_windows(starts, [w.cpu() for w in window_poses], frames, cpu_mesh)
+        out["stitch"] = dict(collectives=issued,
+                             check=check("stitch card against CPU", stitched.cpu(), on_cpu, MULTIDEVICE_SOLVE_TOL))
+        step, issued = collectives(lambda: multidevice_step(device, mesh))
+        out["dp_step"] = dict(collectives=issued, **step)
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -2772,37 +3014,41 @@ def infra_phase(device):
     return out
 
 
-def start_side_phase(name):
-    """``name``'s phase in a process of its own (``python3 chip_smoke.py
-    --phase <name>``), on the same card, with the library this process
-    built; its output goes to temporary files (a pipe left unread would
-    stall it)."""
+def start_side_phase(names):
+    """The phases ``names``, one after another, in a process of their own
+    (``python3 chip_smoke.py --phase <name,name>``), on the same card,
+    with the library this process built; its output goes to temporary
+    files (a pipe left unread would stall it)."""
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", name], cwd=REPO, stdout=out,
-                            stderr=err, text=True)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", ",".join(names)], cwd=REPO,
+                            stdout=out, stderr=err, text=True)
     return proc, out, err
 
 
 def side_phase_result(name, side):
-    """Wait for ``name``'s side process; its result is its last line."""
-    proc, out, err = side.pop(name)
-    with out, err:
-        proc.wait()
-        out.seek(0)
-        err.seek(0)
-        lines = out.read().strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            raise AssertionError(f"{name}: its process exited {proc.returncode}: {err.read()[-3000:]}")
-    return json.loads(lines[-1])
+    """``name``'s result from the side process, waited for at its first
+    reading; the process's result is its last line, ``{name: result}``."""
+    if "results" not in side:
+        proc, out, err = side.pop("process")
+        with out, err:
+            proc.wait()
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"side phases: their process exited {proc.returncode}: {err.read()[-3000:]}")
+        side["results"] = json.loads(lines[-1])
+    return side["results"][name]
 
 
 def run_phases(device, smi, paths, side):
     """The paths after the kernel checks and the serving, each emitted as
     it ends.  vo_eval's trial (255-370 s of host-bound solves, PERF.md
-    section 5) runs in a side process from eval_v4 on, beside phases that
-    time no kernel (the kernel checks and the fused-objective and tuning
-    scripts run before it starts), so the run fits its time limit without
-    cutting a path's depth; its launches are counted in its own process."""
+    section 5) and then vo_windows (49-59 s) run in a side process from
+    eval_v4 on, beside phases that time no kernel (the kernel checks and
+    the fused-objective and tuning scripts run before it starts), so the
+    run fits its time limit without cutting a path's depth; their launches
+    are counted in their own process."""
     phases = [
         ("fused_objective", lambda: fused_objective_phase(device)),
         ("k1_tune", lambda: k1_tune_phase(device)),
@@ -2814,26 +3060,27 @@ def run_phases(device, smi, paths, side):
         ("frontend_train_check", lambda: frontend_train_check_phase(device)),
         ("frontend_train", lambda: frontend_train_phase(device)),
         ("vo_eval", lambda: side_phase_result("vo_eval", side)),
-        ("vo_windows", lambda: vo_windows_phase(device)),
+        ("vo_windows", lambda: side_phase_result("vo_windows", side)),
         ("eval_seq", lambda: eval_seq_phase(device)),
         ("learned_solver", lambda: learned_solver_phase(device)),
         ("gen1_train", lambda: gen1_train_phase(device)),
         ("distorted", lambda: distorted_phase(device)),
         ("track_sequence", lambda: track_sequence_phase(device)),
         ("infra", lambda: infra_phase(device)),
+        ("multidevice", lambda: multidevice_phase(device)),
     ]
     for label, fn in phases:
         if label == "eval_v4":
-            side["vo_eval"] = start_side_phase("vo_eval")
+            side["process"] = start_side_phase(SIDE_PHASES)
         t0 = time.perf_counter()
         paths[label] = fn()
         emit(label, card=smi, **paths[label], seconds=time.perf_counter() - t0)
         torch.cuda.empty_cache()
 
 
-def run_side_phase(name):
-    """``--phase <name>``: one phase alone on the card; its result as the
-    last line of standard output."""
+def run_side_phase(names):
+    """``--phase <name,name>``: these phases alone on the card, one after
+    another; ``{name: result}`` as the last line of standard output."""
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2844,10 +3091,12 @@ def run_side_phase(name):
     device = torch.device("cuda")
     full_f32_matmuls()
     build.load_library()
-    t0 = time.perf_counter()
-    result = globals()[f"{name}_phase"](device)
-    result["seconds_in_its_process"] = time.perf_counter() - t0
-    print(json.dumps(result), flush=True)
+    results = {}
+    for name in names.split(","):
+        t0 = time.perf_counter()
+        results[name] = globals()[f"{name}_phase"](device)
+        results[name]["seconds_in_its_process"] = time.perf_counter() - t0
+    print(json.dumps(results), flush=True)
     return 0
 
 
@@ -2889,6 +3138,7 @@ def main():
         ("k1_vo_drift_f32", lambda: k1_phase(VO_DRIFT_BATCH, torch.float32, device, p=VO_DRIFT_P)),
         ("k1_learned_solver", lambda: k1_phase(256, torch.float32, device)),
         ("k1_gen1", lambda: k1_phase(GEN1_SOLVE_SCENES, torch.float32, device, p=GEN1_P)),
+        ("k1_eval_seq_p117", lambda: k1_phase(EVAL_SEQ_WINDOWS, torch.float32, device, p=EVAL_SEQ_P)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
         ("k2_val", lambda: k2_phase(VAL_BATCH, device)),
@@ -2897,6 +3147,11 @@ def main():
         ("k3", lambda: k3_phase(device)),
         ("k4_bench", lambda: k4_phase(BENCH_BATCH, device)),
         ("k4_serve", lambda: k4_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
+        ("k2_eval_seq_4x32", lambda: k2_phase(EVAL_SEQ_WINDOWS, device, 4, EVAL_SEQ_POINTS)),
+        ("k4_eval_seq_4x32", lambda: k4_phase(EVAL_SEQ_WINDOWS, device, 4, EVAL_SEQ_POINTS)),
+        *((f"k{k}_{m}x{n}", lambda k=k, m=m, n=n: (k2_phase if k == 2 else k4_phase)(SERVE_SCENES * SERVE_RESTARTS,
+                                                                                     device, m, n))
+          for m, n in GENERAL_SCENES for k in (2, 4)),
         ("k1v_rowloop", lambda: k1_phase(BENCH_BATCH, torch.float32, device, k1_variant("rowloop"))),
         ("k1v_rowloop2", lambda: k1_phase(BENCH_BATCH, torch.float32, device, k1_variant("rowloop2"))),
     ):
@@ -2931,7 +3186,8 @@ def main():
     try:
         run_phases(device, smi, paths, side)
     finally:
-        for proc, out, err in side.values():  # a phase that raised left its side process running
+        if "process" in side:  # a phase that raised left the side process running
+            proc, out, err = side.pop("process")
             proc.kill()
             proc.wait()
             out.close()
@@ -2939,6 +3195,7 @@ def main():
     paths["vo_windows_scale_drift"] = paths["vo_windows"]["scale_drift"]
     paths["vo_windows_learned"] = paths["vo_windows"]["learned_matches"]
     paths["eval_seq_learned"] = paths["eval_seq"]["learned"]
+    paths["eval_seq_learned_32"] = paths["eval_seq"]["learned_32"]
     paths["learned_solver_direction"] = paths["learned_solver"]["direction"]
     paths["gen1_protocol_solve"] = paths["gen1_train"]["protocol_solve"]
 

@@ -82,7 +82,14 @@ class _FlaxBatchNorm(nn.BatchNorm1d):
     move the running statistics by ``m * running + (1 - m) * batch`` with
     m = 0.99 on that same biased variance (torch's own update uses the
     unbiased one and the opposite momentum).  ``affine=False`` is flax's
-    BatchNorm without scale and bias."""
+    BatchNorm without scale and bias.
+
+    ``reduce_statistics``, when set (the data-parallel step sets it for its
+    forward), takes this rank's ``(2, F)`` sums of ``x`` and ``x^2`` and
+    their count and returns the global batch's, differentiably, so the
+    statistics are the global batch's as under GSPMD."""
+
+    reduce_statistics: Optional[Callable] = None
 
     def __init__(self, num_features: int, affine: bool = True):
         super().__init__(num_features, eps=_BATCH_NORM_EPS, affine=affine)
@@ -94,8 +101,16 @@ class _FlaxBatchNorm(nn.BatchNorm1d):
             mean, var = self.running_mean, self.running_var
         else:
             dims = tuple(range(x.ndim - 1))
-            mean = torch.mean(x, dim=dims)
-            var = torch.clamp(torch.mean(torch.square(x), dim=dims) - torch.square(mean), min=0.0)
+            if self.reduce_statistics is None:
+                mean = torch.mean(x, dim=dims)
+                mean_sq = torch.mean(torch.square(x), dim=dims)
+            else:
+                sums, count = self.reduce_statistics(
+                    torch.stack([torch.sum(x, dim=dims), torch.sum(torch.square(x), dim=dims)]),
+                    x.numel() // x.shape[-1],
+                )
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = _BATCH_NORM_MOMENTUM
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

@@ -44,11 +44,13 @@ __all__ = [
     "calibration_value_and_grad",
     "calibration_value_and_dirderiv",
     "make_fused_calibration_objective",
-    "SUPPORTED_SCENES",
+    "MAX_SCENE_TERMS",
 ]
 
-# (M, N) scene sizes compiled into the CUDA kernel
-SUPPORTED_SCENES = ((4, 8),)
+# the kernels take every scene of M >= 2 views and N >= 1 points with
+# M N <= MAX_SCENE_TERMS: (4, 8) by its own instantiation, the rest by the
+# general kernel (csrc/calibration_obj.cu, csrc/calibration_dirderiv.cu)
+MAX_SCENE_TERMS = 256
 
 
 def _atan2_poly_and_partials(y, x):
@@ -359,14 +361,15 @@ def _value_and_dirderiv_plain(parameters, direction, u_t, v_t, vis_t):
 
 def _check_kernel_inputs(tensors, u_t):
     """Raise unless the CUDA kernels take these ``(name, tensor)`` pairs:
-    a compiled ``(M, N)``, ``(B, P)`` vectors and ``(M, N, B)``
-    observations, all contiguous float32 on one card."""
+    M >= 2 views and N >= 1 points with M N <= :data:`MAX_SCENE_TERMS`,
+    ``(B, P)`` vectors and ``(M, N, B)`` observations, all contiguous
+    float32 on one card."""
     device = tensors[0][1].device
     num_views, num_points, batch = u_t.shape
-    if (num_views, num_points) not in SUPPORTED_SCENES:
+    if num_views < 2 or num_points < 1 or num_views * num_points > MAX_SCENE_TERMS:
         raise ValueError(
-            f"the CUDA kernel is compiled for (M, N) in {SUPPORTED_SCENES}, "
-            f"got {(num_views, num_points)}"
+            f"the CUDA kernels take M >= 2 views and N >= 1 points with M N <= {MAX_SCENE_TERMS}, "
+            f"got (M, N) = {(num_views, num_points)}"
         )
     p = num_calibration_parameters(num_views, num_points)
     for name, x in tensors:

@@ -1,5 +1,5 @@
-"""Bundle adjustment by Schur-complement reduction, on one device (the port
-of the single-device part of ``davo_tpu/parallel/schur.py``).
+"""Bundle adjustment by Schur-complement reduction (the port of
+``davo_tpu/parallel/schur.py``), on one device or sharded over a mesh.
 
 A damped Gauss-Newton / Levenberg-Marquardt step on the joint (intrinsics,
 poses, points) problem:
@@ -21,8 +21,19 @@ and the card's stream never waits on the host.  The LM loop runs a fixed
 number of iterations with ``where`` acceptance, so it does not sync the
 host either.  On the card the products run with TF32 off
 (:func:`davo_tpu_torch.utils.precision.full_f32_matmuls`): the normal
-equations square the condition number.  The distributed solvers of the
-JAX module are not ported yet (``ROADMAP.md`` Queue 1 item 9).
+equations square the condition number.
+
+The distributed solvers run SPMD over a ``DeviceMesh``
+(:mod:`davo_tpu_torch.parallel.mesh`): every rank is called with the whole
+problem, eliminates its shard of points, and issues the JAX program's
+collectives itself (:func:`distributed_schur_ba`: the reduced camera
+system and its rhs in one all-reduce, then the candidate's cost;
+:func:`distributed_schur_ba_2d`: the separator factors over ``"kf"``, the
+reduced system over the whole mesh, the point deltas' regather over
+``"kf"``, the cost).  The LM loop decides on the all-reduced cost, which
+holds the same bits on every rank, so every rank accepts the same steps.
+Each rank returns the whole solved problem (its points' shards gathered
+once, at the end).
 """
 
 from __future__ import annotations
@@ -31,9 +42,13 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from davo_tpu_torch.geometry import rotate_vector_axis_angle, so3_parameter_jacobian, so3_rotation_matrix
 from davo_tpu_torch.utils.precision import full_f32_matmuls
+
+from .mesh import DATA_AXIS, axis, whole_group
 
 __all__ = [
     "BAProblem",
@@ -43,6 +58,8 @@ __all__ = [
     "ba_cost",
     "schur_normal_step",
     "schur_ba_solve",
+    "distributed_schur_ba",
+    "distributed_schur_ba_2d",
     "default_gauge_masks",
 ]
 
@@ -164,14 +181,23 @@ def _camera_dim(num_views: int) -> int:
     return 3 + 6 * num_views
 
 
-def _normal_parts(problem, obs, config, gauge_masks):
-    """Raw normal-equation parts of the whole problem.
+def _normal_parts(problem, obs, config, gauge_masks, *, num_total_views=None, view_offset=0):
+    """Raw normal-equation parts of whatever observation block
+    ``problem``/``obs`` hold: the whole problem on one device, or a rank's
+    ``(M_local x N_local)`` block.
+
+    The dense camera axis spans ``num_total_views`` views (by default the
+    local count); the local views' pose columns land at ``view_offset``, so
+    keyframe shards assemble disjoint column ranges of one global system.
 
     :return: ``(h_cc (C,C), g_c (C,), h_cp (N,C,3), c_blk (N,3,3),
-        g_p (N,3))`` with ``C = 3 + 6M``, before pinning and inversion.
+        g_p (N,3))`` with ``C = 3 + 6 num_total_views``, before pinning and
+        inversion (2-D shards sum ``c_blk`` over the keyframe axis first).
     """
     intr_free, pose_free, point_free = gauge_masks
     m = problem.poses.shape[0]
+    if num_total_views is None:
+        num_total_views = m
     r, j_intr, j_pose, j_point = _jacobian_blocks(problem, obs, config)
     w_irls = _irls_weights(r, config)
     r = r * w_irls
@@ -181,6 +207,7 @@ def _normal_parts(problem, obs, config, gauge_masks):
     # dense camera Jacobian (M, N, 2, 3 + 6M): pose blocks one-hot at their views
     eye_m = torch.eye(m, dtype=j_pose.dtype, device=j_pose.device)
     j_pose_dense = torch.einsum("mnrp,mv->mnrvp", j_pose, eye_m).reshape(j_pose.shape[:3] + (6 * m,))
+    j_pose_dense = F.pad(j_pose_dense, (6 * view_offset, 6 * (num_total_views - m - view_offset)))
     j_cam = torch.cat([j_intr, j_pose_dense], dim=-1)
 
     h_cc = torch.einsum("mnrc,mnrd->cd", j_cam, j_cam)
@@ -208,11 +235,20 @@ def _eliminate_points(h_cc, g_c, h_cp, c_blk, g_p, point_free, damping):
     return s, rhs, c_inv
 
 
-def _solve_camera_and_points(s, rhs, h_cp, c_inv, g_p, gauge_masks, damping, m):
-    """Solve the damped reduced camera system and back-substitute the
-    point deltas."""
-    intr_free, pose_free, point_free = gauge_masks
-    cam_free = torch.cat([intr_free, pose_free.reshape(-1)])
+def _local_reduction(problem, obs, config, gauge_masks, damping):
+    """A shard's half of a Schur step: its contribution to the reduced
+    camera system and its points' elimination factors (the whole problem
+    on one device, or a rank's shard of points).
+
+    :return: ``(s_part, rhs_part, h_cp, c_inv, g_p)``.
+    """
+    h_cc, g_c, h_cp, c_blk, g_p = _normal_parts(problem, obs, config, gauge_masks)
+    s_part, rhs_part, c_inv = _eliminate_points(h_cc, g_c, h_cp, c_blk, g_p, gauge_masks[2], damping)
+    return s_part, rhs_part, h_cp, c_inv, g_p
+
+
+def _solve_camera(s, rhs, cam_free, damping, m):
+    """Solve the damped reduced camera system."""
     # pinned camera dims have zero rows and columns: a diagonal at the
     # system's own scale keeps them out of the condition number
     diag_scale = torch.clamp(torch.trace(s) / _camera_dim(m), min=1.0)
@@ -224,23 +260,34 @@ def _solve_camera_and_points(s, rhs, h_cp, c_inv, g_p, gauge_masks, damping, m):
     dc = solve(rhs)
     # one step of iterative refinement (float32 LU on ill-conditioned systems)
     dc = dc + solve(rhs - s @ dc)
-    dc = dc * cam_free.to(dc.dtype)
+    return dc * cam_free.to(dc.dtype)
+
+
+def _point_deltas(dc, h_cp, c_inv, g_p, point_free):
+    """Back-substitute the point deltas ``C^-1 (-g_p - H_cp^T dc)``."""
     dp = torch.einsum("npq,nq->np", c_inv, -g_p - torch.einsum("ncp,c->np", h_cp, dc))
-    dp = dp * point_free.to(dp.dtype)
-    return dc, dp
+    return dp * point_free.to(dp.dtype)
+
+
+def _solve_camera_and_points(s, rhs, h_cp, c_inv, g_p, gauge_masks, damping, m):
+    """Solve the damped reduced camera system and back-substitute the
+    point deltas."""
+    intr_free, pose_free, point_free = gauge_masks
+    dc = _solve_camera(s, rhs, torch.cat([intr_free, pose_free.reshape(-1)]), damping, m)
+    return dc, _point_deltas(dc, h_cp, c_inv, g_p, point_free)
+
+
+def _apply_camera_delta(problem: BAProblem, dc: torch.Tensor) -> BAProblem:
+    m = problem.poses.shape[0]
+    return problem._replace(intrinsics=problem.intrinsics + dc[0:3], poses=problem.poses + dc[3:].reshape(m, 6))
 
 
 def _damped_step(problem: BAProblem, obs, config, damping, gauge_masks) -> BAProblem:
     """One Schur Gauss-Newton step at a tensor damping value."""
     m = problem.poses.shape[0]
-    h_cc, g_c, h_cp, c_blk, g_p = _normal_parts(problem, obs, config, gauge_masks)
-    s, rhs, c_inv = _eliminate_points(h_cc, g_c, h_cp, c_blk, g_p, gauge_masks[2], damping)
+    s, rhs, h_cp, c_inv, g_p = _local_reduction(problem, obs, config, gauge_masks, damping)
     dc, dp = _solve_camera_and_points(s, rhs, h_cp, c_inv, g_p, gauge_masks, damping, m)
-    return BAProblem(
-        intrinsics=problem.intrinsics + dc[0:3],
-        poses=problem.poses + dc[3:].reshape(m, 6),
-        points=problem.points + dp,
-    )
+    return _apply_camera_delta(problem, dc)._replace(points=problem.points + dp)
 
 
 def _masks(gauge_masks, m, n, device):
@@ -301,3 +348,142 @@ def schur_ba_solve(
         lambda prob, damping: _damped_step(prob, obs, config, damping, gauge_masks),
         lambda prob: _weighted_cost(prob, obs, config),
     )
+
+
+def _all_reduce_parts(parts, group):
+    """Sum each tensor of ``parts`` over ``group`` in one all-reduce of
+    their concatenation (the fusion XLA makes of the JAX program's
+    ``psum``s); every rank gets the same bits."""
+    flat = torch.cat([x.reshape(-1) for x in parts])
+    dist.all_reduce(flat, group=group)
+    return [chunk.reshape(x.shape) for chunk, x in zip(flat.split([x.numel() for x in parts]), parts)]
+
+
+def _all_gather_rows(x, group, size):
+    """The ranks' row blocks of ``group``, in their order along the axis."""
+    blocks = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(blocks, x.contiguous(), group=group)
+    return torch.cat(blocks)
+
+
+def distributed_schur_ba(
+    problem: BAProblem,
+    obs: BAObservations,
+    mesh,
+    config: SchurConfig = SchurConfig(),
+    axis_name: str = DATA_AXIS,
+    gauge_masks=None,
+) -> BAProblem:
+    """Schur BA with the point block sharded over ``mesh``'s ``axis_name``.
+
+    Every rank is called with the whole problem and returns the whole
+    solution.  The camera parameters are replicated; each rank eliminates
+    its ``N / size`` points, and per LM iteration only the reduced camera
+    system ``(3 + 6M)^2`` with its rhs (one all-reduce) and the candidate's
+    cost cross the interconnect
+    (:func:`davo_tpu_torch.parallel.comm_model.schur_1d_traffic`); the
+    point shards are gathered once, at the end.
+
+    ``N`` must divide evenly over the axis.
+    """
+    full_f32_matmuls()
+    m, n = obs.pixels.shape[0], obs.pixels.shape[1]
+    intr_free, pose_free, point_free = _masks(gauge_masks, m, n, obs.pixels.device)
+    group, size, coordinate = axis(mesh, axis_name)
+    if n % size != 0:
+        raise ValueError(f"num_points={n} must divide evenly over mesh axis {axis_name!r} (size {size})")
+    rows = slice(coordinate * (n // size), (coordinate + 1) * (n // size))
+    local_obs = BAObservations(obs.pixels[:, rows], obs.visibility[:, rows])
+    local_masks = (intr_free, pose_free, point_free[rows])
+
+    def step_fn(prob, damping):
+        s_part, rhs_part, h_cp, c_inv, g_p = _local_reduction(prob, local_obs, config, local_masks, damping)
+        # the step's only traffic: the reduced camera system and its rhs
+        s, rhs = _all_reduce_parts([s_part, rhs_part], group)
+        dc, dp = _solve_camera_and_points(s, rhs, h_cp, c_inv, g_p, local_masks, damping, m)
+        return _apply_camera_delta(prob, dc)._replace(points=prob.points + dp)
+
+    def cost_fn(prob):
+        return _all_reduce_parts([_weighted_cost(prob, local_obs, config)], group)[0]
+
+    solved = _lm_loop(problem._replace(points=problem.points[rows]), config, step_fn, cost_fn)
+    return solved._replace(points=_all_gather_rows(solved.points, group, size))
+
+
+def distributed_schur_ba_2d(
+    problem: BAProblem,
+    obs: BAObservations,
+    mesh,
+    config: SchurConfig = SchurConfig(),
+    kf_axis: str = "kf",
+    pt_axis: str = "pt",
+    gauge_masks=None,
+) -> BAProblem:
+    """Schur BA over a 2-D (keyframe x point) mesh of shape ``(a, b)``.
+
+    Each rank owns an ``(M/a x N/b)`` observation block, its ``M/a`` views'
+    pose columns and ``N/b`` points; per LM iteration:
+
+    1. it builds its block's raw normal-equation parts, its pose columns at
+       their global offsets (:func:`_normal_parts`);
+    2. the point factors ``(H_cp, C, g_p)`` are summed over the keyframe
+       axis in one all-reduce: a point seen from several keyframe shards
+       couples them (the separator traffic);
+    3. each keyframe row eliminates a disjoint ``N/(ab)`` sub-slice of its
+       point shard, and the eliminated contributions are summed over the
+       whole mesh into the reduced camera system, which every rank solves;
+    4. the sub-slices' point deltas are regathered along the keyframe axis
+       (scattered into zeros and all-reduced: the JAX program's
+       replication-restoring gather, with its data volume);
+    5. the candidate's cost is one all-reduce over the whole mesh (XLA
+       stages it as one per axis).
+
+    Every rank holds the whole pose mask, so the JAX program's pose-mask
+    regather has no counterpart.  Requires ``M % a == 0``, ``N % b == 0``
+    and ``(N // b) % a == 0``.  Every rank returns the whole solution.
+    """
+    full_f32_matmuls()
+    m, n = obs.pixels.shape[0], obs.pixels.shape[1]
+    intr_free, pose_free, point_free = _masks(gauge_masks, m, n, obs.pixels.device)
+    kf_group, a, kf_idx = axis(mesh, kf_axis)
+    pt_group, b, pt_idx = axis(mesh, pt_axis)
+    if m % a != 0:
+        raise ValueError(f"num_views={m} must divide evenly over mesh axis {kf_axis!r} (size {a})")
+    if n % b != 0 or (n // b) % a != 0:
+        raise ValueError(
+            f"num_points={n} must divide evenly over both mesh axes ({pt_axis!r} size {b}, then {kf_axis!r} size {a})"
+        )
+    everyone = whole_group(mesh)
+    m_loc, n_loc = m // a, n // b
+    n_sub = n_loc // a
+    views = slice(kf_idx * m_loc, (kf_idx + 1) * m_loc)
+    points = slice(pt_idx * n_loc, (pt_idx + 1) * n_loc)
+    sub = slice(kf_idx * n_sub, (kf_idx + 1) * n_sub)
+    block_obs = BAObservations(obs.pixels[views, points], obs.visibility[views, points])
+    block_masks = (intr_free, pose_free[views], point_free[points])
+    cam_free = torch.cat([intr_free, pose_free.reshape(-1)])
+
+    def block(prob):
+        return BAProblem(prob.intrinsics, prob.poses[views], prob.points)
+
+    def step_fn(prob, damping):
+        h_cc, g_c, h_cp, c_blk, g_p = _normal_parts(
+            block(prob), block_obs, config, block_masks, num_total_views=m, view_offset=kf_idx * m_loc
+        )
+        # separator: each point's factors over the keyframe shards that see it
+        h_cp, c_blk, g_p = _all_reduce_parts([h_cp, c_blk, g_p], kf_group)
+        s_part, rhs_part, c_inv = _eliminate_points(
+            h_cc, g_c, h_cp[sub], c_blk[sub], g_p[sub], block_masks[2][sub], damping
+        )
+        s, rhs = _all_reduce_parts([s_part, rhs_part], everyone)
+        dc = _solve_camera(s, rhs, cam_free, damping, m)
+        dp = torch.zeros_like(prob.points)
+        dp[sub] = _point_deltas(dc, h_cp[sub], c_inv, g_p[sub], block_masks[2][sub])
+        (dp,) = _all_reduce_parts([dp], kf_group)
+        return _apply_camera_delta(prob, dc)._replace(points=prob.points + dp)
+
+    def cost_fn(prob):
+        return _all_reduce_parts([_weighted_cost(block(prob), block_obs, config)], everyone)[0]
+
+    solved = _lm_loop(problem._replace(points=problem.points[points]), config, step_fn, cost_fn)
+    return solved._replace(points=_all_gather_rows(solved.points, pt_group, b))

@@ -205,11 +205,12 @@ def _structure_targets(batch: CameraViewsAndPoints):
     return wp / scale, tr / scale
 
 
-def _winner_take_all_loss(network, predictions, error, batch, structure_weight):
+def _winner_take_all_loss(network, predictions, error, batch, structure_weight, reduce_mean=None):
     """Per-element min-over-tokens supervised loss of ``(B, E, P)`` token
     guesses with ``(B, E)`` objective values: each element is scored by its
     best token; the metrics are the single-guess names at the winning
-    token plus the token-usage entropy."""
+    token plus the token-usage entropy (of the batch-mean usage, which
+    ``reduce_mean`` averages over the ranks of a data-parallel step)."""
     b, e, _ = predictions.shape
     unpacked = unpack_calibration_parameters(predictions, network.num_views, network.num_points)
     pred_intrinsics = unpacked.intrinsics.reshape(b, e, 3)
@@ -240,6 +241,8 @@ def _winner_take_all_loss(network, predictions, error, batch, structure_weight):
     metrics = {name: torch.mean(pick(v)) for name, v in components.items()}
     metrics["loss"] = loss
     usage = torch.mean(F.one_hot(best, e).to(total.dtype), dim=0)
+    if reduce_mean is not None:
+        usage = reduce_mean(usage)
     metrics["token_usage_entropy"] = -torch.sum(usage * torch.log(torch.clamp(usage, min=1e-12)))
     return loss, metrics
 
@@ -252,16 +255,18 @@ def _loss_and_metrics(
     training: bool = False,
     generator: Optional[torch.Generator] = None,
     keep_masks: Optional[torch.Tensor] = None,
+    reduce_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """The loss and metrics of one batch through the network's eval or
     training forward (the training one keeps the graph and moves the
-    BatchNorm running statistics)."""
+    BatchNorm running statistics).  ``reduce_mean`` (a data-parallel
+    step's mean over its ranks) takes the token usage before its entropy."""
     predictions, error = network(
         batch.projected_points, batch.visibility_mask, training=training, generator=generator,
         keep_masks=keep_masks, return_error=True,
     )
     if predictions.ndim == 3:
-        return _winner_take_all_loss(network, predictions, error, batch, structure_weight)
+        return _winner_take_all_loss(network, predictions, error, batch, structure_weight, reduce_mean)
     unpacked = unpack_calibration_parameters(predictions, network.num_views, network.num_points)
     pred_intrinsics = unpacked.intrinsics.reshape(predictions.shape[0], 3)
     pred_focal = F.elu(pred_intrinsics[:, 0]) + 1.0

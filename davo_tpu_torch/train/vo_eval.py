@@ -64,7 +64,8 @@ from davo_tpu_torch.geometry import (
     so3_parameter_jacobian,
     so3_rotation_matrix,
 )
-from davo_tpu_torch.parallel import BAObservations, BAProblem, SchurConfig, ba_cost, schur_ba_solve
+from davo_tpu_torch.parallel import BAObservations, BAProblem, SchurConfig, ba_cost, distributed_schur_ba, schur_ba_solve
+from davo_tpu_torch.parallel.mesh import require_mesh
 from davo_tpu_torch.solve.least_squares import LMConfig, levenberg_marquardt
 from davo_tpu_torch.utils.device import resolve_device
 from davo_tpu_torch.utils.precision import full_f32_matmuls
@@ -1358,27 +1359,26 @@ def refine_trajectory_global(
     mesh=None,
     rounds: int = 1,
 ) -> torch.Tensor:
-    """Global pose refinement on one device: triangulate every point from
-    the trajectory and run a full-sequence BA (intrinsics frozen, frame 0
-    pinned); ``rounds > 1`` alternates the two.
+    """Global pose refinement: triangulate every point from the trajectory
+    and run a full-sequence BA (intrinsics frozen, frame 0 pinned);
+    ``rounds > 1`` alternates the two.  With ``mesh`` the point block is
+    sharded over its ``"data"`` axis (:func:`davo_tpu_torch.parallel.
+    distributed_schur_ba`; every rank calls this with the whole sequence).
 
     :param estimates: ``(K, 6)`` world->camera poses.
     :return: ``(K, 6)`` refined poses.
     """
-    if mesh is not None:
-        raise NotImplementedError("refine_trajectory_global(mesh=...): the distributed Schur BA is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
     full_f32_matmuls()
     masks = _vo_gauge_masks(pixels.shape[0], pixels.shape[1])
     poses = estimates
     for _ in range(max(1, rounds)):
         points = triangulate_points(poses, intrinsics, pixels, visibility)
-        poses = schur_ba_solve(
-            BAProblem(intrinsics=intrinsics, poses=poses, points=points),
-            BAObservations(pixels=pixels, visibility=visibility),
-            solver,
-            gauge_masks=masks,
-        ).poses
+        problem = BAProblem(intrinsics=intrinsics, poses=poses, points=points)
+        obs = BAObservations(pixels=pixels, visibility=visibility)
+        if mesh is not None:
+            poses = distributed_schur_ba(problem, obs, mesh, solver, gauge_masks=masks).poses
+        else:
+            poses = schur_ba_solve(problem, obs, solver, gauge_masks=masks).poses
     return poses
 
 
@@ -1578,9 +1578,8 @@ def evaluate_learned_vo(
     """
     if pipeline not in ("windows", "incremental"):
         raise ValueError(f"unknown pipeline {pipeline!r}")
-    if mesh is not None and refine and multistart == 0:
-        raise NotImplementedError("refine_trajectory_global(mesh=...): the distributed Schur BA is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
+    if mesh is not None:
+        require_mesh(mesh)
     full_f32_matmuls()
     device = resolve_device(device)
     noise = noise or {}

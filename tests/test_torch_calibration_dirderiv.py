@@ -107,6 +107,29 @@ def test_plain_matches_jax_jvp_f64(seed):
     assert dphi[7] == 0.0  # d = 0
 
 
+@pytest.mark.parametrize("m,n", [(4, 32), (3, 8)])
+def test_plain_matches_jax_jvp_f64_at_other_scene_sizes(m, n):
+    """eval-seq's default scene (4 views x 32 points) and one of 3 views,
+    which the kernel takes through its general path: the plain version
+    against ``jax.jvp`` in float64, 1e-12 relative to the largest
+    component."""
+    rng = np.random.default_rng(m * n)
+    batch, p = 8, 3 + 3 * n + 6 * (m - 1)
+    params = 0.3 * rng.normal(size=(batch, p))
+    params[:, 0] += rng.normal(size=batch)
+    params[:, 5 : 3 + 3 * n : 3] += 1.0
+    params[0, 0] = -0.7
+    params[1, 3 + 3 * n + 3 * (m - 1) :] *= 1e-4  # the Taylor branches
+    u = rng.uniform(-1.0, 1.0, size=(m, n, batch))
+    v = rng.uniform(-1.0, 1.0, size=(m, n, batch))
+    vis = (rng.random((m, n, batch)) > 0.2).astype(np.float64)
+    direction = rng.normal(size=(batch, p))
+    err, dphi = _plain(params, direction, u, v, vis)
+    j_err, j_dphi = _jax_jvp(params, direction, u, v, vis)
+    np.testing.assert_allclose(err, j_err, rtol=1e-12, atol=1e-12 * np.max(np.abs(j_err)))
+    np.testing.assert_allclose(dphi, j_dphi, rtol=1e-12, atol=1e-12 * np.max(np.abs(j_dphi)))
+
+
 def test_plain_matches_torch_forward_mode_f64():
     params, direction, u, v, vis = _problem(3)
     err, dphi = _plain(params, direction, u, v, vis)

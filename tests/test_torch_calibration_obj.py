@@ -64,7 +64,7 @@ def test_plain_matches_pallas_kernel_f32(m, n):
     np.testing.assert_allclose(t_grad, np.asarray(j_grad), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("m,n", [(4, 8), (2, 3)])
+@pytest.mark.parametrize("m,n", [(4, 8), (2, 3), (4, 32), (3, 8)])
 def test_plain_matches_vjp_f64(m, n):
     params, u, v, vis = _problem(1, 32, m, n)
 
@@ -105,6 +105,23 @@ def test_fused_objective_closures():
     assert err.shape == (b,) and grad.shape == (b, params.shape[1])
     # the gradient of the exact-atan2 objective, to the polynomial's accuracy
     np.testing.assert_allclose(grad.numpy(), np.asarray(j_grad), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,n,taken", [(4, 8, True), (4, 32, True), (3, 8, True), (2, 128, True), (256, 1, True),
+                                       (16, 17, False), (1, 8, False)])
+def test_kernel_input_check_takes_every_scene_up_to_the_cap(m, n, taken):
+    """The check the wrappers make before a launch on the card: every scene
+    of M >= 2 views and N >= 1 points with M N <= 256 (eval-seq's default
+    4 x 32 among them), a ValueError above the cap or below two views."""
+    p = 3 + 3 * n + 6 * (m - 1)
+    vectors = torch.zeros(5, p, dtype=torch.float32)
+    obs = torch.zeros(m, n, 5, dtype=torch.float32)
+    tensors = [("parameters", vectors), ("u_t", obs), ("v_t", obs), ("vis_t", obs)]
+    if taken:
+        assert tk2._check_kernel_inputs(tensors, obs) == (5, p)
+    else:
+        with pytest.raises(ValueError, match="M N <= 256"):
+            tk2._check_kernel_inputs(tensors, obs)
 
 
 def test_wrapper_rejects_unknown_device_layouts():

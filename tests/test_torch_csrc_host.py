@@ -22,7 +22,8 @@ the card guarantees (``tests/csrc_host/cuda_pipeline.h``).
 
 Tolerances, float32 on both sides: K1 and K1′ normwise 1e-4 (bfloat16 H:
 1e-2, one rounding of the stored H), K2 values 1e-5 and gradients 1e-4
-normwise, K4 values 1e-5 and directional derivatives 1e-4 normwise, K3
+normwise, K4 values 1e-5 and directional derivatives 1e-4 normwise (at
+(4, 8) and at the general kernels' sizes alike), K3
 1e-5 normwise (QK^T as three TF32 products, "3xTF32", whose dropped term is
 2^-22 of a product, and float32 sums in another order), with rows that
 have no valid key exactly zero.
@@ -272,14 +273,13 @@ def test_bfgs_update_variant_refuses_unsupported(host_library):
         assert status != 0
 
 
-def _objective_problem(seed, b=300):
+def _objective_problem(seed, b=300, m=4, n=8):
     """``b`` elements (300: 38 blocks of 8 for K2 and K4, the last one
-    ragged) with the objective's edges: identity
-    rotations, small angles (the Taylor branches), f < 0 and f = 0 (the
-    exp branch of elu(f) + 1), a view with nothing visible and an element
-    that sees nothing."""
+    ragged) of ``m`` views and ``n`` points with the objective's edges:
+    identity rotations, small angles (the Taylor branches), f < 0 and f = 0
+    (the exp branch of elu(f) + 1), a view with nothing visible and an
+    element that sees nothing."""
     rng = np.random.default_rng(seed)
-    m, n = 4, 8
     p = 3 + 3 * n + 6 * (m - 1)
     params = 0.3 * rng.normal(size=(b, p))
     params[:, 0] += rng.normal(size=b)
@@ -354,14 +354,37 @@ def test_calibration_value_and_dirderiv_source_one_ragged_block(host_library, b)
     _run_k4_source(host_library, *_objective_problem(b, b))
 
 
-def test_unsupported_scene_size_is_refused(host_library):
+# sizes that take the general kernels (every size but (4, 8)): eval-seq's
+# default (4, 32), fewer views (3, 8), N not a power of two (4, 12) and
+# 96 terms in three chunks of 32 (6, 16); 21 elements, 3 blocks of 8 with
+# the last one ragged
+GENERAL_SCENES = [(4, 32), (3, 8), (4, 12), (6, 16)]
+
+
+@pytest.mark.parametrize("m,n", GENERAL_SCENES)
+def test_calibration_value_and_grad_source_general_sizes(host_library, m, n):
+    err, grad = _run_k2_source(host_library, *_objective_problem(m * n, 21, m, n)[:4])
+    assert err[5] == 0.0  # an element that sees nothing
+    assert np.all(np.isfinite(grad))
+
+
+@pytest.mark.parametrize("m,n", GENERAL_SCENES)
+def test_calibration_value_and_dirderiv_source_general_sizes(host_library, m, n):
+    err, dphi = _run_k4_source(host_library, *_objective_problem(m * n, 21, m, n))
+    assert err[5] == 0.0 and dphi[5] == 0.0  # an element that sees nothing
+
+
+@pytest.mark.parametrize("m,n", [(16, 17), (1, 8), (8, 0)])
+def test_unsupported_scene_size_is_refused(host_library, m, n):
+    """Above the cap of 256 terms (16 x 17 = 272), or a scene of one view
+    or no point: refused before any launch."""
     buf = np.zeros(64, np.float32)
     status = host_library.davo_calibration_value_and_grad(
-        *(buf.ctypes.data for _ in range(6)), 1, 3, 5, None
+        *(buf.ctypes.data for _ in range(6)), 1, m, n, None
     )
     assert status != 0
     status = host_library.davo_calibration_value_and_dirderiv(
-        *(buf.ctypes.data for _ in range(7)), 1, 3, 5, None
+        *(buf.ctypes.data for _ in range(7)), 1, m, n, None
     )
     assert status != 0
 

@@ -20,7 +20,8 @@ float32 on both sides, normwise (max |a - b| / max(1, max |b|)): K1 1e-4
 (bfloat16 H: 1e-2, one rounding of the stored H), K2 values 1e-5 and
 gradients 1e-4, K3 1e-5 with rows that have no valid key exactly zero (its
 QK^T on the tensor cores as three TF32 products, float32 accuracy), K1′
-as K1, K4 values 1e-5 and directional derivatives 1e-4.
+as K1, K4 values 1e-5 and directional derivatives 1e-4 (K2 and K4 also at
+scene sizes other than (4, 8), through their general kernels).
 """
 
 import numpy as np
@@ -240,14 +241,35 @@ def test_calibration_value_and_dirderiv_kernel_at_served_batches(cuda_device, b)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(4, 32), (3, 8), (4, 12), (6, 16)])
+def test_calibration_kernels_at_other_scene_sizes(cuda_device, m, n):
+    """K2 and K4's general kernels (every size but (4, 8)): eval-seq's
+    default (4, 32), 3 views, N not a power of two, 96 terms; a ragged
+    last block."""
+    params, u, v, vis, direction = _objective_inputs(1003, m, n)
+    before = dict(build.launch_counts)
+    k_err, k_grad = k2.calibration_value_and_grad(*(x.to(cuda_device) for x in (params, u, v, vis)))
+    d_err, d_dphi = k2.calibration_value_and_dirderiv(*(x.to(cuda_device) for x in (params, direction, u, v, vis)))
+    torch.cuda.synchronize()
+    for name in ("calibration_value_and_grad", "calibration_value_and_dirderiv"):
+        assert build.launch_counts[name] == before[name] + 1
+    p_err, p_grad = k2.calibration_value_and_grad(params, u, v, vis)
+    _, p_dphi = k2.calibration_value_and_dirderiv(params, direction, u, v, vis)
+    assert _normwise(k_err, p_err) <= 1e-5 and _normwise(d_err, p_err) <= 1e-5
+    assert _normwise(k_grad, p_grad) <= 1e-4
+    assert _normwise(d_dphi, p_dphi) <= 1e-4
+    assert float(k_err[7]) == 0.0 and float(d_dphi[7]) == 0.0  # nothing visible
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     h_t, s, y, grad, updating = (x.to(cuda_device) for x in _k1_inputs(64, 7))
     with pytest.raises(ValueError):  # float64 H
         k1.fused_bfgs_update_direction(h_t.double(), s, y, grad, updating, False, False)
     with pytest.raises(ValueError):  # 8 elements per block is not compiled
         k1v.rowloop2_update_direction(h_t, s, y, grad, updating, False, False, elements_per_block=8)
-    x = torch.zeros(64, 24, device=cuda_device)  # (M, N) = (3, 3) is not compiled
-    obs = torch.zeros(3, 3, 64, device=cuda_device)
+    x = torch.zeros(64, 144, device=cuda_device)  # (M, N) = (16, 17): 272 terms, above the cap of 256
+    obs = torch.zeros(16, 17, 64, device=cuda_device)
     with pytest.raises(ValueError):
         k2.calibration_value_and_grad(x, obs, obs, obs)
     with pytest.raises(ValueError):

@@ -211,7 +211,9 @@ def test_refine_trajectory_global_matches_jax_and_refuses_a_mesh():
     expected = J.refine_trajectory_global(jnp.asarray(noisy), intr, pixels, vis, rounds=2)
     got = T.refine_trajectory_global(_t(noisy), _t(intr), _t(pixels), _t(vis), rounds=2)
     _assert_poses_close(got, expected, 1e-8)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a mesh is taken (at 4 ranks in test_torch_parallel.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.refine_trajectory_global(_t(noisy), _t(intr), _t(pixels), _t(vis), mesh=object())
 
 

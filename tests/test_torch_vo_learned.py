@@ -107,12 +107,13 @@ def test_evaluate_learned_vo_from_jax_draws_matches_jax(monkeypatch):
 
 
 def test_evaluate_learned_vo_refuses_what_is_not_ported():
-    """The distributed refinement (``mesh=``) is refused before any work;
-    an unknown pipeline or stitch mode is an error (the windows pipeline,
-    multistart and the float64 polish run: ``test_torch_vo_windows.py``,
-    ``test_torch_vo_refine.py``)."""
+    """A ``mesh=`` that is not a ``DeviceMesh`` is refused before any work
+    (the distributed refinement runs at 4 ranks in
+    ``test_torch_parallel.py``); an unknown pipeline or stitch mode is an
+    error (the windows pipeline, multistart and the float64 polish run:
+    ``test_torch_vo_windows.py``, ``test_torch_vo_refine.py``)."""
     cfg = T.TrajectoryConfig(num_frames=FRAMES, num_points=POINTS)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         T.evaluate_learned_vo(None, torch.Generator(), cfg, device="cpu", refine=True, mesh=object())
     for kwargs, match in ((dict(pipeline="bundles"), "unknown pipeline"), (dict(stitch="median"), "unknown stitch")):
         with pytest.raises(ValueError, match=match):
