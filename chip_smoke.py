@@ -13,8 +13,9 @@ Phases, each printed as one JSON line with its seconds:
             vo-eval's bootstrap solve (B = 8), its stacked windows (B = 56),
             K1 at correct_scale_drift's P = 15, B = 1, at the learned
             solvers' comparison (B = 256), at the gen-1 protocol solve's
-            P = 44, B = 64 and at eval-seq's default 32 points (P = 117,
-            its two-pass route, B = 5): error
+            P = 44, B = 64, at eval-seq's default 32 points (P = 117,
+            its two-pass route, B = 5) and at the eval entry's 64 scenes x 8
+            restarts (B = 512): error
             against the stated tolerance, time by CUDA events (``ms``: the
             wrapper's launches one by one from the host, as the solver makes
             them; ``graph_ms``: the same launches replayed from a CUDA graph,
@@ -23,7 +24,9 @@ Phases, each printed as one JSON line with its seconds:
             timed kernel's registers and spill bytes from ptxas;
    k3       the attention kernel against its plain version at the matcher's
             shape (3,072 problems of 144 x 144, D = 64, C = 2), at vo-eval's
-            (15 and 3 problems; 21, the stacked windows) and on masked,
+            (15 and 3 problems; 21, the stacked windows), at the 64-px front
+            ends' 8 x 8 cells (3,072 and 48 problems of 64 x 64: the orbax
+            phase's frontend_v2 request and frontend_v3 batch) and on masked,
             ragged inputs; its time
             beside the plain version's and beside torch's
             scaled_dot_product_attention as the matcher would call
@@ -78,8 +81,11 @@ Phases, each printed as one JSON line with its seconds:
             solve each through the library's evaluate_calibration_ate: v4_1800
             with 32 noise restarts and basin selection, with 8 permutation and
             with 8 input-noise restarts (error selection), and the
-            v5_tokens8 weights (8 readout tokens, architecture read from the
-            pickle) with its tokens as the 8 starts; ATE and f_error beside
+            v5_tokens8 weights (8 readout tokens, read by the port's Orbax
+            reader from artifacts/ckpt_v5_tokens/checkpoint_1800, the store
+            calibration_transformer_v5_tokens8.pkl was exported from,
+            architecture read from its arrays) with its tokens as the 8
+            starts; ATE and f_error beside
             the JAX package's logs, seconds per solve, launches;
 11. train_check  two train steps (MLP head, 3-iteration unrolled solve,
             drop-path with injected keep-masks, a one-step warm-up, float64)
@@ -139,7 +145,24 @@ Phases, each printed as one JSON line with its seconds:
             seconds split, peak memory, beside artifacts/eval_v3_vo.log,
             eval_v3_vo_raw.log, eval_stitch_compare.log and
             eval_learned_v3.log;
-18. eval_seq  python -m davo_tpu_torch.cli eval-seq on tests/fixtures:
+18. orbax   (in the side process, after vo_windows) four of the JAX
+            package's Orbax stores (ckpt_frontend_v2, v3, v4 and
+            ckpt_v5_tokens/checkpoint_1800; checkpoint_600 is read by
+            tests/test_torch_orbax.py only) read once each by the port's
+            reader on the card's host, which has no zstd, tensorstore or
+            Orbax: seconds and MB/s each; v4 against
+            davo_tpu_torch/weights/frontend_v4.npz and v5_tokens/1800
+            against calibration_transformer_v5_tokens8.pkl (through the
+            pickle's digest, time_orbax_reads.PICKLE_DIGESTS), bit for bit;
+            then frontend_v2 (8 points, 64 px) read from its
+            Orbax directory in one learned-match window request (1,024
+            windows, the window solver at 8 restarts: K3, then K1 and K2),
+            one validation batch of frontend_v3's recipe (16 windows of 16
+            points: K3), and cli eval --checkpoint-dir
+            artifacts/ckpt_v5_tokens (embed 384, 8 layers, 8 tokens as the
+            restarts, an eval and an ATE batch of 64: K1 and K2), each
+            beside its JAX log within a band;
+19. eval_seq  python -m davo_tpu_torch.cli eval-seq on tests/fixtures:
             compare mode (TUM estimate against ground truth), oracle VO and
             learned VO (v6_verified, 8 points, windows of 4, 1 restart, the
             front end with eval-seq's gates; K1-K3 launched) along the KITTI
@@ -147,7 +170,7 @@ Phases, each printed as one JSON line with its seconds:
             architecture at 4 x 32 with random weights from a seed, a
             32-point front end after one fit-frontend step; K1 at P = 117,
             K2 at (4, 32) and K3 launched, its ATE and RPE finite);
-19. learned_solver  the trained MLP solver of
+20. learned_solver  the trained MLP solver of
             artifacts/learned_solver_descent_v2.pkl (hidden 256, 5 recurrent
             steps) against BFGS at 5 and 20 iterations on 2 batches of 256
             scenes (compare_with_bfgs: K1 at B = 256, P = 45), each row beside
@@ -156,12 +179,12 @@ Phases, each printed as one JSON line with its seconds:
             direction gate inside the differentiable BFGS solve) beside the JAX
             runs' first epoch; the trained gate's comparison (K1 with
             direction_fn);
-20. gen1_train  one bfgs_solver_only_error_gradient train step on the card
+21. gen1_train  one bfgs_solver_only_error_gradient train step on the card
             against the CPU (float64 asserted, float32 reported), each gen-1
             preset's steps at its batch (seconds a step, peak memory, losses
             finite, no kernel), and the protocol solver on 64
             PinholeCameraModelL1 objectives (K1 at P = 44) against the CPU;
-21. distorted  python -m davo_tpu_torch.cli eval-distorted at its defaults
+22. distorted  python -m davo_tpu_torch.cli eval-distorted at its defaults
             (Brown-Conrady LM, 4 batches of 16 scenes) and refine_distorted at
             the JAX bench's size (4,096 scenes of 32 points, 60 LM iterations,
             float32, CPU-drawn) beside artifacts/distorted_bench_r5b.log: the
@@ -169,24 +192,24 @@ Phases, each printed as one JSON line with its seconds:
             draws), seconds per LM iteration, TF32 off; 16 scenes in float64
             on the card against the CPU (1e-9); the closed-form Jacobian
             against jacfwd (float32, 1e-5); no kernel (LM is plain PyTorch);
-22. track_sequence  frontend_v4 (vo_eval's gates) tracking 4 of vo_eval's
+23. track_sequence  frontend_v4 (vo_eval's gates) tracking 4 of vo_eval's
             16-frame orbits sequentially (K3 at 4 problems of 8 track queries
             against 144 cells, once a frame after the first) and through the
             anchor path: each frame's share of tracks that keep their world
             point; K3 at the tracking shape against its plain version, timed;
-23. infra   fit --config configurations/mlp_guess_config.yaml (1 epoch of 2
+24. infra   fit --config configurations/mlp_guess_config.yaml (1 epoch of 2
             batches, TensorBoard on) registered in a temporary registry, read
             back by runs list/show/compare; presets; a profiling.trace of one
             served BFGS iteration naming K1 and K2; the served network's
             weight_summaries;
-24. multidevice  the multi-device layer on a one-rank NCCL group (the
+25. multidevice  the multi-device layer on a one-rank NCCL group (the
             machine has one card): distributed_schur_ba and
             distributed_schur_ba_2d (1 x 1) against schur_ba_solve (float64,
             1e-12), distributed_stitch_windows against the same function on
             a gloo group on the CPU (1e-12), one make_dp_train_step step
             against make_train_step (float32, 1e-6); the collectives each
             issued;
-25. the kernels line (with each kernel's launches on every path that ran
+26. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -200,7 +223,9 @@ validation (its train steps read 0), K1-K3 from the vo-eval trial,
 K1 and K2 from the windows trial, K1 from correct_scale_drift, K1-K3
 from the windows trial on learned matches and from eval-seq's learned VO
 (at 8 and at 32 points), K1 from the learned solvers' comparisons and from the gen-1 protocol
-solve, K3 from the sequential tracking.
+solve, K3 from the sequential tracking, K1-K3 from frontend_v2's request
+read from Orbax, K3 from frontend_v3's batch and K1 and K2 from the eval
+at v5_tokens.
 """
 
 import itertools
@@ -212,6 +237,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import torch
@@ -261,7 +287,9 @@ EVAL_V4_SOLVES = 1 + 4
 EVAL_V4_BANDS = {"ate_rmse_mean": (0.19, 0.28), "f_error_mean": (0.12, 0.20)}
 # the eval proposals and selections: 256 scenes a case, each beside the
 # JAX package's log (256 scenes from jax.random draws) within a wide band
-V5_CHECKPOINT = os.path.join(REPO, "artifacts", "calibration_transformer_v5_tokens8.pkl")
+# v5_tokens8 through the Orbax reader: the store's latest step (1800) is the
+# pickle calibration_transformer_v5_tokens8.pkl bit for bit
+V5_CHECKPOINT = os.path.join(REPO, "artifacts", "ckpt_v5_tokens")
 EVAL_RESTART_SCENES = 256
 EVAL_RESTART_CASES = [
     ("v4_1800 noise x32 basin", V4_CHECKPOINT, dict(num_restarts=32, restart_proposals="noise", selection="basin"),
@@ -455,12 +483,41 @@ TRACK_GATES = dict(nms_radius=0.1, snap_radius=0.12, cycle_threshold=0.15, quali
 INFRA_CONFIG = os.path.join(REPO, "configurations", "mlp_guess_config.yaml")
 JAX_PRESETS = ["bfgs_solver_full_gradient", "bfgs_solver_only_error_gradient", "calibration_from_oracle_matches",
                "calibration_transformer_curriculum", "mlp_guess"]
+# the Orbax reader: the JAX package's stores read on the card's host (no
+# zstd, tensorstore or Orbax there), v4 against the .npz and v5_tokens/1800
+# against the pickle's digest bit for bit; then served on the card: frontend_v2 (8
+# points, 64 px) in one learned-match window request of frontend_serve's
+# kind (1,024 windows, the window solver vo_windows_transformer_v2_600:
+# K3, then K1 and K2 at B = 8,192), one validation batch of frontend_v3's
+# fit-frontend recipe (16 windows of 16 points, 64 px: K3), and cli eval
+# at v5_tokens through --checkpoint-dir artifacts/ckpt_v5_tokens (embed 384,
+# 8 layers, 8 readout tokens as scripts/recipe_eval_v5.py; its 8 tokens as
+# the restarts, one eval and one ATE batch of 64 scenes: K1 and K2 at B =
+# 512); each figure beside the JAX log's (torch draws: within a band)
+# (of time_orbax_reads.STORES: v5_tokens_600 is left out of the GPU
+# machine's copy of the repo, capped at 256 MiB; see .chiprunignore)
+ORBAX_STORES = ("frontend_v2", "frontend_v3", "frontend_v4", "v5_tokens_1800")
+ORBAX_V3_POINTS, ORBAX_V3_BATCH = 16, 16
+ORBAX_CELLS = 64  # the detector's 8 x 8 cells of a 64-px image: K3's queries and keys
+ORBAX_INLIER_REFERENCE = {  # the JAX runs' final validation (8 batches of 16 windows)
+    "frontend_v2": (0.895263671875, "artifacts/train_frontend_v2.log"),
+    "frontend_v3": (0.8419027328491211, "artifacts/train_frontend_v3_dense.log"),
+}
+ORBAX_INLIER_BAND = {"frontend_v2": (0.9, 1.1), "frontend_v3": (0.85, 1.15)}  # times the JAX figure
+V5_EVAL_BATCH = 64
+V5_EVAL_ARGS = [
+    "eval", "--preset", "calibration_transformer_curriculum", "--hidden-size", "384", "--transformer-layers", "8",
+    "--transformer-heads", "8", "--guess-tokens", "8", "--restart-proposals", "tokens", "--restarts", "8",
+    "--batch-size", str(V5_EVAL_BATCH), "--batches", "1", "--ate-batches", "1",
+    "--checkpoint-dir", V5_CHECKPOINT,
+]
 # the phases run in a side process beside eval_v4 ... frontend_train
-SIDE_PHASES = ("vo_eval", "vo_windows")
+SIDE_PHASES = ("vo_eval", "vo_windows", "orbax")
 # the paths whose launch counts the kernels line reports
 LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval",
                 "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned", "eval_seq_learned_32",
-                "learned_solver", "learned_solver_direction", "gen1_protocol_solve", "track_sequence")
+                "learned_solver", "learned_solver_direction", "gen1_protocol_solve", "track_sequence",
+                "orbax_frontend_v2", "orbax_frontend_v3", "orbax_v5_eval")
 
 
 def emit(phase, **fields):
@@ -849,6 +906,9 @@ def k3_phase(device):
         # windows pipeline's stacked windows
         *((f"vo_{b}", b, K3_CELLS, K3_CELLS, K3_DEPTH, K3_WIDTH, False)
           for b in VO_K3_PROBLEMS + ((M - 1) * VO_WINDOWS,)),
+        # the orbax phase's 64-px front ends: frontend_v2's request, frontend_v3's batch
+        ("orbax_v2", (M - 1) * WINDOWS, ORBAX_CELLS, ORBAX_CELLS, K3_DEPTH, K3_WIDTH, False),
+        ("orbax_v3", (M - 1) * ORBAX_V3_BATCH, ORBAX_CELLS, ORBAX_CELLS, K3_DEPTH, K3_WIDTH, False),
     )
     for label, b, q_len, kv_len, d, c, masked in cases:
         q, k, v, mask = k3_inputs(b, q_len, kv_len, d, c, device, seed=b + q_len, masked=masked)
@@ -1439,16 +1499,20 @@ def jax_reference(log, case=None):
 
 def restart_network(device, checkpoint, scenes, **fields):
     """The curriculum preset's network and experiment at ``checkpoint``'s
-    architecture (read from its arrays), its weights loaded through a
-    checkpoint directory that links it (as the eval entry reads one)."""
+    architecture (read from its arrays), its weights read as the eval
+    entry reads a checkpoint directory: ``checkpoint`` itself where it is
+    one (an Orbax directory), else one that links the pickle."""
     import dataclasses
 
     from davo_tpu_torch.models import checkpoint_architecture, load_flax_weights
     from davo_tpu_torch.train import get_preset, restore_checkpoint
 
-    with tempfile.TemporaryDirectory() as checkpoint_dir:
-        os.symlink(checkpoint, os.path.join(checkpoint_dir, "checkpoint_1.pkl"))
-        restored = restore_checkpoint(checkpoint_dir)
+    if os.path.isdir(checkpoint):
+        restored = restore_checkpoint(checkpoint)
+    else:
+        with tempfile.TemporaryDirectory() as checkpoint_dir:
+            os.symlink(checkpoint, os.path.join(checkpoint_dir, "checkpoint_1.pkl"))
+            restored = restore_checkpoint(checkpoint_dir)
     arch = checkpoint_architecture(restored["params"])
     arch.pop("head")
     config = dataclasses.replace(
@@ -2255,6 +2319,147 @@ def random_checkpoint(path, num_views, num_points, seed=0):
         pickle.dump({"params": params, "batch_stats": batch_stats}, f)
 
 
+# ------------------------------------------------------------- orbax ----
+
+
+def _same_leaves(got, want, path=""):
+    """The number of arrays in ``want``; raises unless ``got`` has its
+    structure and each array's dtype, shape and bytes."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"orbax: {path or '/'} differs in its keys")
+        return sum(_same_leaves(got[k], want[k], f"{path}/{k}") for k in want)
+    want = np.asarray(want)
+    if not isinstance(got, np.ndarray) or (got.dtype, got.shape) != (want.dtype, want.shape) \
+            or got.tobytes() != want.tobytes():
+        raise AssertionError(f"orbax: {path} is not bit for bit the reference's")
+    return 1
+
+
+def _within(name, value, reference, band):
+    if not band[0] * reference <= value <= band[1] * reference:
+        raise AssertionError(f"orbax: {name} {value} is outside {band} x the JAX figure {reference}")
+
+
+def orbax_phase(device):
+    """The JAX package's Orbax stores read by the port and served on the
+    card (see ORBAX_STORES): the reads' seconds and MB/s, the two
+    bit-equality checks, and three paths each counted from 0 just before
+    it."""
+    import dataclasses
+
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.data import VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.models import load_frontend, load_frontend_npz
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.scripts.time_orbax_reads import PICKLE_DIGESTS, STORES, host, read_store, tree_digest
+    from davo_tpu_torch.train import FrontendExperiment, frontend_eval_metrics, render_scene_batch
+
+    out = {"host": host()}
+    trees = {}
+    for name in ORBAX_STORES:
+        read = read_store(STORES[name])
+        trees[name] = read["tree"]
+        out.setdefault("reads", {})[name] = read["figures"]
+    out["v4_equals_npz_arrays"] = _same_leaves(trees["frontend_v4"], load_frontend_npz(FRONTEND_NPZ))
+    pickle_path, pickle_digest = PICKLE_DIGESTS["v5_tokens_1800"]
+    if tree_digest(trees["v5_tokens_1800"]) != pickle_digest:
+        raise AssertionError(f"orbax: v5_tokens/1800 is not bit for bit {pickle_path} (its digest differs)")
+    out["v5_tokens_1800_equals_pickle_digest"] = dict(pickle=pickle_path, sha256=pickle_digest)
+    del trees
+
+    # frontend_v2: one learned-match window request, the front end read from its Orbax directory
+    frontend, render_config = load_frontend(STORES["frontend_v2"].parent, device=device)
+    network = serve_network(device, checkpoint=WINDOW_CHECKPOINT)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    windows = generate_vo_window_batch(torch.Generator(device).manual_seed(0), WINDOWS, VOWindowConfig(), device=device)
+    images = render_scene_batch(torch.Generator(device).manual_seed(1000), windows, render_config)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    matches = frontend(images)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    params, error = network(matches.matches, matches.match_visibility,
+                            generator=torch.Generator(device).manual_seed(2000), return_error=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(build.launch_counts)
+    metrics = frontend_eval_metrics(matches, windows, FrontendExperiment(render=render_config))
+    if images.shape != (WINDOWS, M, ORBAX_CELLS, ORBAX_CELLS, 3) or not torch.isfinite(params).all():
+        raise AssertionError(f"orbax frontend_v2: images {tuple(images.shape)} or a solve that is not finite")
+    v2 = dict(
+        windows=WINDOWS, image_size=render_config.image_size, latency_s=t3 - t0, generate_render_s=t1 - t0,
+        frontend_s=t2 - t1, solve_s=t3 - t2, match_inlier_rate=metrics["match_inlier_rate"].item(),
+        visible_match_share=matches.match_visibility.float().mean().item(), mean_final_error=error.mean().item(),
+        f_error_mean=focal_error(params, windows).mean().item(), launches=launches,
+        jax_match_inlier_rate=ORBAX_INLIER_REFERENCE["frontend_v2"][0],
+        jax_reference_source=ORBAX_INLIER_REFERENCE["frontend_v2"][1] + " (last line)",
+        band=ORBAX_INLIER_BAND["frontend_v2"],
+    )
+    del network, frontend, images, matches
+    torch.cuda.empty_cache()
+
+    # frontend_v3: one validation batch of its fit-frontend recipe (16 points, select 16, 64 px)
+    frontend, render_config = load_frontend(STORES["frontend_v3"].parent, device=device)
+    experiment = FrontendExperiment(num_points=ORBAX_V3_POINTS, num_select=frontend.num_select, render=render_config)
+    window_config = dataclasses.replace(VOWindowConfig(), num_points=ORBAX_V3_POINTS)
+    generator = torch.Generator(device).manual_seed(600)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    windows = generate_vo_window_batch(generator, ORBAX_V3_BATCH, window_config, device=device)
+    matches = frontend(render_scene_batch(generator, windows, render_config))
+    metrics = frontend_eval_metrics(matches, windows, experiment)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    v3 = dict(
+        windows=ORBAX_V3_BATCH, points=ORBAX_V3_POINTS, num_select=frontend.num_select,
+        image_size=render_config.image_size, seconds=seconds, launches=dict(build.launch_counts),
+        **{k: v.item() for k, v in metrics.items()},
+        jax_match_inlier_rate=ORBAX_INLIER_REFERENCE["frontend_v3"][0],
+        jax_reference_source=ORBAX_INLIER_REFERENCE["frontend_v3"][1] + " (last line)",
+        band=ORBAX_INLIER_BAND["frontend_v3"],
+    )
+    if matches.matches.shape != (ORBAX_V3_BATCH, M, ORBAX_V3_POINTS, 2):
+        raise AssertionError(f"orbax frontend_v3: matches of shape {tuple(matches.matches.shape)}")
+    del frontend, matches
+    torch.cuda.empty_cache()
+
+    # v5_tokens: cli eval through the Orbax checkpoint directory
+    reference = jax_reference("recipe_evals_r5.log", "v5t_tokens8_error")
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = cli.run(V5_EVAL_ARGS)
+    torch.cuda.synchronize()
+    v5 = dict(
+        result=result, scenes=V5_EVAL_BATCH, seconds=time.perf_counter() - t0, launches=dict(build.launch_counts),
+        jax_reference={k: reference[k] for k in ("ate_rmse_mean", "ate_rmse_median", "f_error_mean")},
+        jax_reference_source="artifacts/recipe_evals_r5.log (v5t_tokens8_error, 256 scenes, jax.random draws)",
+        band=EVAL_RESTART_BAND,
+    )
+    out.update(frontend_v2=v2, frontend_v3=v3, v5_eval=v5)
+    for name, path, counters in (("frontend_v2", v2, ("bfgs_update", "calibration_value_and_grad",
+                                                      "match_attention")),
+                                 ("frontend_v3", v3, ("match_attention",)),
+                                 ("v5_eval", v5, ("bfgs_update", "calibration_value_and_grad"))):
+        for counter in counters:
+            if path["launches"][counter] <= 0:
+                raise AssertionError(f"orbax {name}: never launched kernel {counter}")
+    if not all(math.isfinite(v) for v in result.values()):
+        raise AssertionError(f"orbax v5_eval: non-finite metrics {result}")
+    for name in ("frontend_v2", "frontend_v3"):
+        _within(f"{name} match_inlier_rate", out[name]["match_inlier_rate"], ORBAX_INLIER_REFERENCE[name][0],
+                ORBAX_INLIER_BAND[name])
+    for key in ("ate_rmse_mean", "f_error_mean"):
+        _within(f"v5_eval {key}", result[key], reference[key], EVAL_RESTART_BAND)
+    return out
+
+
 def eval_seq_phase(device):
     """python -m davo_tpu_torch.cli eval-seq on the fixtures: compare mode,
     oracle VO and learned VO along the KITTI file through the front end, at
@@ -3027,7 +3232,8 @@ def start_side_phase(names):
 
 def side_phase_result(name, side):
     """``name``'s result from the side process, waited for at its first
-    reading; the process's result is its last line, ``{name: result}``."""
+    reading; the process's result is its last line, ``{name: result}``,
+    and a phase that raised there raises here with its traceback."""
     if "results" not in side:
         proc, out, err = side.pop("process")
         with out, err:
@@ -3035,10 +3241,17 @@ def side_phase_result(name, side):
             out.seek(0)
             err.seek(0)
             lines = out.read().strip().splitlines()
-            if proc.returncode != 0 or not lines:
+            try:
+                results = json.loads(lines[-1])
+            except (IndexError, ValueError):
+                results = None
+            if not isinstance(results, dict) or not set(SIDE_PHASES) <= set(results):
                 raise AssertionError(f"side phases: their process exited {proc.returncode}: {err.read()[-3000:]}")
-        side["results"] = json.loads(lines[-1])
-    return side["results"][name]
+        side["results"] = results
+    result = side["results"][name]
+    if "error" in result:
+        raise AssertionError(f"side phase {name} failed: {result['error']}")
+    return result
 
 
 def run_phases(device, smi, paths, side):
@@ -3061,6 +3274,7 @@ def run_phases(device, smi, paths, side):
         ("frontend_train", lambda: frontend_train_phase(device)),
         ("vo_eval", lambda: side_phase_result("vo_eval", side)),
         ("vo_windows", lambda: side_phase_result("vo_windows", side)),
+        ("orbax", lambda: side_phase_result("orbax", side)),
         ("eval_seq", lambda: eval_seq_phase(device)),
         ("learned_solver", lambda: learned_solver_phase(device)),
         ("gen1_train", lambda: gen1_train_phase(device)),
@@ -3080,7 +3294,9 @@ def run_phases(device, smi, paths, side):
 
 def run_side_phase(names):
     """``--phase <name,name>``: these phases alone on the card, one after
-    another; ``{name: result}`` as the last line of standard output."""
+    another; ``{name: result}`` as the last line of standard output, a
+    phase that raised as ``{"error": traceback}`` (the next still runs)
+    and the exit code 1."""
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3094,10 +3310,14 @@ def run_side_phase(names):
     results = {}
     for name in names.split(","):
         t0 = time.perf_counter()
-        results[name] = globals()[f"{name}_phase"](device)
+        try:
+            results[name] = globals()[f"{name}_phase"](device)
+        except Exception:
+            results[name] = {"error": traceback.format_exc()[-3000:]}
+            torch.cuda.empty_cache()
         results[name]["seconds_in_its_process"] = time.perf_counter() - t0
     print(json.dumps(results), flush=True)
-    return 0
+    return int(any("error" in r for r in results.values()))
 
 
 def main():
@@ -3139,11 +3359,13 @@ def main():
         ("k1_learned_solver", lambda: k1_phase(256, torch.float32, device)),
         ("k1_gen1", lambda: k1_phase(GEN1_SOLVE_SCENES, torch.float32, device, p=GEN1_P)),
         ("k1_eval_seq_p117", lambda: k1_phase(EVAL_SEQ_WINDOWS, torch.float32, device, p=EVAL_SEQ_P)),
+        ("k1_eval_f32", lambda: k1_phase(V5_EVAL_BATCH * 8, torch.float32, device)),
         ("k2_serve", lambda: k2_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
         ("k2_bench", lambda: k2_phase(BENCH_BATCH, device)),
         ("k2_val", lambda: k2_phase(VAL_BATCH, device)),
         ("k2_vo", lambda: k2_phase(VO_BATCH, device)),
         ("k2_vo_windows", lambda: k2_phase(VO_WINDOWS_BATCH, device)),
+        ("k2_eval", lambda: k2_phase(V5_EVAL_BATCH * 8, device)),
         ("k3", lambda: k3_phase(device)),
         ("k4_bench", lambda: k4_phase(BENCH_BATCH, device)),
         ("k4_serve", lambda: k4_phase(SERVE_SCENES * SERVE_RESTARTS, device)),
@@ -3198,6 +3420,8 @@ def main():
     paths["eval_seq_learned_32"] = paths["eval_seq"]["learned_32"]
     paths["learned_solver_direction"] = paths["learned_solver"]["direction"]
     paths["gen1_protocol_solve"] = paths["gen1_train"]["protocol_solve"]
+    for name in ("frontend_v2", "frontend_v3", "v5_eval"):
+        paths[f"orbax_{name}"] = paths["orbax"][name]
 
     # launches: each kernel's count on the path that drives it, counted
     # from 0 just before the path and read just after: K1-K3 on the

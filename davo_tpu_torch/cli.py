@@ -6,7 +6,7 @@ not ported).
     python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
         --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
     python -m davo_tpu_torch.cli eval --preset calibration_transformer_curriculum \\
-        --checkpoint-dir <dir holding checkpoint_<step>.pkl> \\
+        --checkpoint-dir <dir holding checkpoint_<step>.pkl or an Orbax checkpoint_<step>/> \\
         --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8 \\
         [--restart-proposals noise|permutation|input_noise|tokens] [--selection error|basin] \\
         [--basin-anchor W] [--guess-tokens E] [--solver lbfgs [--lbfgs-history M]]
@@ -22,9 +22,9 @@ not ported).
     python -m davo_tpu_torch.cli vo-eval --checkpoint <weights.pkl> --hidden-size 384 \\
         --transformer-layers 8 --transformer-heads 8 --pipeline incremental \\
         --association geometric --no-refine --matches learned \\
-        --frontend-checkpoint davo_tpu_torch/weights/frontend_v4.npz [gates] --trials 4
+        --frontend-checkpoint artifacts/ckpt_frontend_v4 [gates] --trials 4
     python -m davo_tpu_torch.cli eval-seq --gt <gt.txt> [--est <est.txt>] [--format tum|kitti] \\
-        [--checkpoint <weights.pkl> --points 8 [--frontend-checkpoint <npz>]]
+        [--checkpoint <weights.pkl> --points 8 [--frontend-checkpoint <npz or dir>]]
     python -m davo_tpu_torch.cli eval-distorted [--batches 4 --batch-size 16 --points 32 \\
         --perturbation 0.02 --pixel-noise 0 --lm-iterations 60 --seed 0]
     python -m davo_tpu_torch.cli fit --config configurations/mlp_guess_config.yaml
@@ -33,10 +33,14 @@ not ported).
 
 ``fit`` trains the preset (``train/calibration.py::fit``: checkpoints of
 the whole state every 25 epochs and at the end in ``--checkpoint-dir``,
-which a later ``fit`` resumes from), prints a JSON line per split and
-epoch (also appended to ``--metrics-file``), the path of the final
-checkpoint (``checkpoint_<global epochs>.pkl``, which ``eval`` and the JAX
-package's ``restore_checkpoint`` read) and ``{"final_val": ...}`` last.
+which a later ``fit`` resumes from, as it resumes from the JAX trainer's
+Orbax checkpoints), prints a JSON line per split and epoch (also appended
+to ``--metrics-file``), the path of the final checkpoint
+(``checkpoint_<global epochs>.pkl``, which ``eval`` and the JAX package's
+``restore_checkpoint`` read) and ``{"final_val": ...}`` last.  Wherever a
+command takes a checkpoint directory it reads the JAX package's pickles
+and its Orbax ``checkpoint_<step>/`` directories alike
+(``train/checkpoint.py::restore_checkpoint``).
 On a gen-1 preset (``bfgs_solver_*``, ``mlp_guess``: the MLP guess with
 the analytic-gradient BFGS unrolled in training, or alone) ``fit`` trains
 it (``train/optimisation.py``), prints a ``train`` line an epoch, saves
@@ -71,7 +75,8 @@ global refinement unless ``--no-refine``, and with ``--host-polish`` the
 float64 polish), or ``--pipeline incremental`` (a learned bootstrap and
 the accumulator); with ``--matches learned`` the front end of
 ``--frontend-checkpoint`` (an ``.npz`` with its ``.json``, or a
-``fit-frontend`` directory; see ``models/convert.py::load_frontend``)
+``fit-frontend`` directory of either package, pickle or Orbax; see
+``models/convert.py::load_frontend``)
 supplies the observations.  It prints a JSON line a trial and
 ``{"mean_ate_rmse": ...}`` last, as the JAX CLI.  Trial ``t`` draws from
 a generator seeded ``100 + t`` (the JAX CLI's key).  ``eval-seq`` compares
@@ -132,7 +137,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--batches-per-epoch", type=int, default=None)
     p.add_argument("--val-batches", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint_<step>.pkl files or the JAX CLI's Orbax checkpoint_<step>/ directories")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
     p.add_argument("--tensorboard-dir", default=None, help=_TENSORBOARD_HELP)
     p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR, help=_REGISTRY_HELP)
@@ -452,7 +458,8 @@ def _add_vo_eval(sub) -> None:
     p.add_argument("--pipeline", default="windows", choices=("windows", "incremental"))
     p.add_argument("--association", default="geometric", choices=("geometric", "descriptor"))
     p.add_argument("--matches", default="oracle", choices=("oracle", "learned"))
-    p.add_argument("--frontend-checkpoint", default=None, help="front-end .npz or fit-frontend directory")
+    p.add_argument("--frontend-checkpoint", default=None,
+                   help="front-end .npz, or a fit-frontend directory (pickle or the JAX CLI's Orbax checkpoints)")
     p.add_argument("--track-anchors", type=int, default=1, choices=(1, 2))
 
 
@@ -479,7 +486,8 @@ def _add_eval_seq(sub) -> None:
     p.add_argument("--checkpoint", default=None,
                    help="guess-network .pkl: run the learned windowed VO along the file instead of the oracle solver")
     p.add_argument("--frontend-checkpoint", default=None,
-                   help="front-end .npz or fit-frontend directory: render frames along the file and take every "
+                   help="front-end .npz, or a fit-frontend directory (pickle or the JAX CLI's Orbax checkpoints): "
+                   "render frames along the file and take every "
                    "window's observations from the front end (requires --checkpoint)")
     p.add_argument("--stitch", default="global", help="global | robust | chain")
     p.add_argument("--pipeline", default="windows", choices=("windows", "incremental"),

@@ -47,15 +47,16 @@ any other array (an embedding, a learnable constant) keeps its name.
 ``batch_stats`` onto the port's :class:`VOFrontend` (convolution kernels
 ``HWIO`` become ``OIHW``), and :func:`frontend_state_to_flax` maps the
 port's front end back to them (the port's ``fit-frontend`` writes its
-checkpoints with it).  The front end's Orbax checkpoint is carried as
-numpy in ``davo_tpu_torch/weights/frontend_v4.npz`` (keys
-``params/detector/enc1_a/conv/kernel`` and so on, exported once from
-``artifacts/ckpt_frontend_v4`` and checked against it by the tests) with
-its ``frontend_config.json`` beside it as ``frontend_v4.json``;
-:func:`load_frontend` builds the module from them, or from a checkpoint
-directory that the port's ``fit-frontend`` wrote (``checkpoint_<step>.pkl``
-and ``frontend_config.json``), as the JAX package's
-``cli.py::_load_frontend_fn`` does.
+checkpoints with it).  The front end's Orbax checkpoint
+``artifacts/ckpt_frontend_v4`` is also carried as numpy in
+``davo_tpu_torch/weights/frontend_v4.npz`` (keys
+``params/detector/enc1_a/conv/kernel`` and so on, equal to the checkpoint
+bit for bit, as the tests check) with its ``frontend_config.json`` beside
+it as ``frontend_v4.json``; :func:`load_frontend` builds the module from
+them, or from a checkpoint directory of either package's ``fit-frontend``
+(the port's ``checkpoint_<step>.pkl``, the JAX CLI's Orbax
+``checkpoint_<step>/``, and ``frontend_config.json``), as the JAX
+package's ``cli.py::_load_frontend_fn`` does.
 """
 
 from __future__ import annotations
@@ -116,10 +117,30 @@ def _reconstruct_array(fun, args, arr_state, aval_state):
     return array
 
 
+# the optax states of the JAX trainer's optimiser (clip_by_global_norm,
+# adamw): their fields, read as the dict (None for a state with none) that
+# the JAX package's Orbax host restore gives for them
+_OPTAX_STATES = {
+    ("optax._src.base", "EmptyState"): (),
+    ("optax._src.transform", "ScaleByAdamState"): ("count", "mu", "nu"),
+    ("optax._src.transform", "ScaleByScheduleState"): ("count",),
+}
+
+
+def _optax_state(fields):
+    class State:
+        def __new__(cls, *values):  # a namedtuple is unpickled as cls.__new__(cls, *fields)
+            return dict(zip(fields, values)) if fields else None
+
+    return State
+
+
 class _NumpyOnlyUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) == ("jax._src.array", "_reconstruct_array"):
             return _reconstruct_array
+        if (module, name) in _OPTAX_STATES:
+            return _optax_state(_OPTAX_STATES[module, name])
         if module == "jax.numpy" and isinstance(getattr(np, name, None), type) and issubclass(
             getattr(np, name), np.generic
         ):
@@ -142,7 +163,9 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
 
 def load_numpy_checkpoint(path: Union[str, Path]) -> dict:
     """A checkpoint dict (``params``, ``batch_stats``, ...) of numpy arrays,
-    from a pickle of numpy or of JAX arrays."""
+    from a pickle of numpy or of JAX arrays (the trainer's optax states
+    among them read as dicts of their fields, ``None`` for a state with
+    none)."""
     with open(path, "rb") as f:
         return _NumpyOnlyUnpickler(f).load()
 
@@ -405,7 +428,9 @@ def load_frontend(
     """The front end and its :class:`RenderConfig` from a ``.npz`` of
     weights and the ``frontend_config.json`` fields beside it (``.json``
     of the same name), or from a checkpoint directory of ``fit-frontend``
-    (its latest ``checkpoint_<step>.pkl`` and its ``frontend_config.json``):
+    (its latest checkpoint, a ``checkpoint_<step>.pkl`` or the JAX CLI's
+    Orbax ``checkpoint_<step>/``, and its ``frontend_config.json``, as
+    ``vo-eval --frontend-checkpoint artifacts/ckpt_frontend_v4``):
     ``num_select`` (else ``default_points``), ``descriptor_channels``,
     ``embedding_size`` and ``image_size``.  ``gates`` override the
     :class:`VOFrontend` verification-gate defaults."""

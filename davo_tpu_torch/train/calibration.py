@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -493,11 +493,29 @@ def train_state_tree(state: TrainState) -> dict:
     return {"params": params, "batch_stats": batch_stats, "opt_state": opt_state, "step": state.step}
 
 
+def _adam_state(opt_state: Any) -> Optional[dict]:
+    """The Adam ``count``, ``mu`` and ``nu`` of a checkpoint's
+    ``opt_state``: the port's own dict, or found in the JAX trainer's
+    optax chain (clip_by_global_norm, then adamw) as a restore gives it, a
+    sequence whose states are dicts of their fields."""
+    if isinstance(opt_state, dict) and {"count", "mu", "nu"} <= set(opt_state):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)):
+        for item in opt_state:
+            found = _adam_state(item)
+            if found is not None:
+                return found
+    return None
+
+
 def restore_train_state(state: TrainState, tree: dict) -> None:
-    """Load a :func:`train_state_tree` into ``state``, in place."""
+    """Load a :func:`train_state_tree`, or the JAX trainer's checkpoint of
+    its state (pickle or Orbax), into ``state``, in place."""
     network = state.network
     load_flax_weights(network, tree["params"], tree.get("batch_stats"))
-    opt_state = tree["opt_state"]
+    opt_state = _adam_state(tree["opt_state"])
+    if opt_state is None:
+        raise ValueError("the checkpoint's opt_state holds no Adam state (count, mu, nu)")
     mu, nu = flax_to_state_dict(opt_state["mu"]), flax_to_state_dict(opt_state["nu"])
     saved = state.optimizer.state_dict()
     saved["state"] = {

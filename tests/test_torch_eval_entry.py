@@ -298,8 +298,8 @@ def test_cli_eval_lbfgs_on_the_cpu(monkeypatch, capsys):
 
 
 def test_checkpoint_and_preset_refusals(tmp_path):
-    (tmp_path / "checkpoint_5").mkdir()  # an Orbax checkpoint directory
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    (tmp_path / "checkpoint_5").mkdir()  # an Orbax checkpoint directory that holds nothing (no _METADATA)
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
         restore_checkpoint(str(tmp_path))
     # the gen-1 presets are the JAX package's, field by field
     for name in ("bfgs_solver_full_gradient", "bfgs_solver_only_error_gradient", "mlp_guess"):

@@ -276,14 +276,29 @@ def test_cli_vo_eval_descriptor_association_on_two_anchored_tracks(tiny_checkpoi
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (("--matches", "learned", "--frontend-checkpoint", "artifacts/ckpt_frontend_v4"), "item 8"),
+        (("--matches", "learned", "--frontend-checkpoint", "{orbax_of_an_unknown_version}"), "format version 9"),
     ],
     ids=["orbax_frontend"],
 )
-def test_cli_vo_eval_refuses_what_is_not_ported(tiny_checkpoint, extra, match):
+def test_cli_vo_eval_refuses_what_is_not_ported(tiny_checkpoint, extra, match, tmp_path):
+    """The JAX CLI's Orbax front-end directories are read (``artifacts/
+    ckpt_frontend_v4``: ``tests/test_torch_orbax.py``); one whose OCDBT
+    manifest has a format version the reader does not know is refused
+    before any work, naming it."""
+    import shutil
+
+    from davo_tpu_torch.train.ocdbt import crc32c
+
+    directory = tmp_path / "ckpt_frontend_v4"
+    shutil.copytree("artifacts/ckpt_frontend_v4", directory)
+    manifest = directory / "checkpoint_600" / "manifest.ocdbt"
+    data = bytearray(manifest.read_bytes())
+    data[12] = 9  # the format version, the varint after the magic number and the length
+    data[-4:] = crc32c(bytes(data[:-4])).to_bytes(4, "little")
+    manifest.write_bytes(bytes(data))
     args = _tiny_args(tiny_checkpoint, "--trials", "1")
-    with pytest.raises(NotImplementedError, match=match):
-        cli.run(args + list(extra))
+    with pytest.raises(ValueError, match=match):
+        cli.run(args + [str(directory) if e == "{orbax_of_an_unknown_version}" else e for e in extra])
 
 
 def test_cli_vo_eval_needs_the_card_unless_asked_for_the_cpu(tiny_checkpoint):
