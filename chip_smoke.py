@@ -162,7 +162,22 @@ Phases, each printed as one JSON line with its seconds:
             artifacts/ckpt_v5_tokens (embed 384, 8 layers, 8 tokens as the
             restarts, an eval and an ATE batch of 64: K1 and K2), each
             beside its JAX log within a band;
-19. eval_seq  python -m davo_tpu_torch.cli eval-seq on tests/fixtures:
+19. orbax_write  (in the side process, after orbax) the port's Orbax
+            writer: the same four stores read, written twice (the faster
+            write timed: seconds and MB/s on the card's host) and read back,
+            one SHA-256 tree digest each side; cli fit at the reference
+            recipe's full width (calibration_from_oracle_matches, batch 64),
+            cut by a --config file to 2 epochs of 2 batches, into Orbax
+            directories: 2 epochs whole, and 1 epoch by fit then 1 by cli
+            fit resuming from the written directory (the resumed epoch
+            against the whole run's second to RESUME_TOL, opt_state in the
+            JAX chain's layout); cli eval --checkpoint-dir on the written
+            directory (an eval and an ATE batch of 64: K1 and K2);
+            fit-frontend at frontend_v4's recipe cut to one epoch of 2
+            steps, read back by load_frontend (weights and matches bit for
+            bit the trained module's) and served in one learned-match window
+            request (1,024 windows: K3, K1 and K2);
+20. eval_seq  python -m davo_tpu_torch.cli eval-seq on tests/fixtures:
             compare mode (TUM estimate against ground truth), oracle VO and
             learned VO (v6_verified, 8 points, windows of 4, 1 restart, the
             front end with eval-seq's gates; K1-K3 launched) along the KITTI
@@ -170,7 +185,7 @@ Phases, each printed as one JSON line with its seconds:
             architecture at 4 x 32 with random weights from a seed, a
             32-point front end after one fit-frontend step; K1 at P = 117,
             K2 at (4, 32) and K3 launched, its ATE and RPE finite);
-20. learned_solver  the trained MLP solver of
+21. learned_solver  the trained MLP solver of
             artifacts/learned_solver_descent_v2.pkl (hidden 256, 5 recurrent
             steps) against BFGS at 5 and 20 iterations on 2 batches of 256
             scenes (compare_with_bfgs: K1 at B = 256, P = 45), each row beside
@@ -179,12 +194,12 @@ Phases, each printed as one JSON line with its seconds:
             direction gate inside the differentiable BFGS solve) beside the JAX
             runs' first epoch; the trained gate's comparison (K1 with
             direction_fn);
-21. gen1_train  one bfgs_solver_only_error_gradient train step on the card
+22. gen1_train  one bfgs_solver_only_error_gradient train step on the card
             against the CPU (float64 asserted, float32 reported), each gen-1
             preset's steps at its batch (seconds a step, peak memory, losses
             finite, no kernel), and the protocol solver on 64
             PinholeCameraModelL1 objectives (K1 at P = 44) against the CPU;
-22. distorted  python -m davo_tpu_torch.cli eval-distorted at its defaults
+23. distorted  python -m davo_tpu_torch.cli eval-distorted at its defaults
             (Brown-Conrady LM, 4 batches of 16 scenes) and refine_distorted at
             the JAX bench's size (4,096 scenes of 32 points, 60 LM iterations,
             float32, CPU-drawn) beside artifacts/distorted_bench_r5b.log: the
@@ -192,24 +207,24 @@ Phases, each printed as one JSON line with its seconds:
             draws), seconds per LM iteration, TF32 off; 16 scenes in float64
             on the card against the CPU (1e-9); the closed-form Jacobian
             against jacfwd (float32, 1e-5); no kernel (LM is plain PyTorch);
-23. track_sequence  frontend_v4 (vo_eval's gates) tracking 4 of vo_eval's
+24. track_sequence  frontend_v4 (vo_eval's gates) tracking 4 of vo_eval's
             16-frame orbits sequentially (K3 at 4 problems of 8 track queries
             against 144 cells, once a frame after the first) and through the
             anchor path: each frame's share of tracks that keep their world
             point; K3 at the tracking shape against its plain version, timed;
-24. infra   fit --config configurations/mlp_guess_config.yaml (1 epoch of 2
+25. infra   fit --config configurations/mlp_guess_config.yaml (1 epoch of 2
             batches, TensorBoard on) registered in a temporary registry, read
             back by runs list/show/compare; presets; a profiling.trace of one
             served BFGS iteration naming K1 and K2; the served network's
             weight_summaries;
-25. multidevice  the multi-device layer on a one-rank NCCL group (the
+26. multidevice  the multi-device layer on a one-rank NCCL group (the
             machine has one card): distributed_schur_ba and
             distributed_schur_ba_2d (1 x 1) against schur_ba_solve (float64,
             1e-12), distributed_stitch_windows against the same function on
             a gloo group on the CPU (1e-12), one make_dp_train_step step
             against make_train_step (float32, 1e-6); the collectives each
             issued;
-26. the kernels line (with each kernel's launches on every path that ran
+27. the kernels line (with each kernel's launches on every path that ran
    it), then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -225,7 +240,8 @@ from the windows trial on learned matches and from eval-seq's learned VO
 (at 8 and at 32 points), K1 from the learned solvers' comparisons and from the gen-1 protocol
 solve, K3 from the sequential tracking, K1-K3 from frontend_v2's request
 read from Orbax, K3 from frontend_v3's batch and K1 and K2 from the eval
-at v5_tokens.
+at v5_tokens, K1 and K2 from the eval of the port-written directory and
+K1-K3 from the request served by the port-written front end.
 """
 
 import itertools
@@ -511,13 +527,35 @@ V5_EVAL_ARGS = [
     "--batch-size", str(V5_EVAL_BATCH), "--batches", "1", "--ate-batches", "1",
     "--checkpoint-dir", V5_CHECKPOINT,
 ]
+# the Orbax writer: every ORBAX_STORES store read, written twice (the faster
+# write timed) and read back on the card's host, one SHA-256 tree digest
+# each side; cli fit at the train phase's reference recipe at full width
+# (calibration_from_oracle_matches: MLP hidden 256, batch 64, the
+# 10-iteration unrolled solve), cut by a --config file to 2 epochs of 2
+# batches and 1 validation batch (its solve cut as resume_check's), into
+# Orbax directories: 2 epochs whole by cli fit, and 1 epoch by fit then 1 by
+# cli fit resuming, the resumed epoch against the whole run's second to
+# RESUME_TOL; cli eval from the whole run's directory (one eval and one ATE
+# batch of 64 scenes: K1 and K2 at B = 64, P = 45); fit-frontend at
+# frontend_v4's recipe (96 px) cut to one epoch of 2 steps into an Orbax
+# directory, read back by load_frontend (its weights and its matches on one
+# request's images bit for bit those of the trained module still in
+# memory) and served in one learned-match window request of 1,024 windows
+# (K3, then K1 and K2 at B = 8,192; two steps from a random init: no band)
+ORBAX_WRITE_CONFIG = {"preset": "calibration_from_oracle_matches", "epochs": 2, "batches_per_epoch": 2,
+                      "val_batches": 1, "solver": {"iterations": RESUME_EVAL_ITERATIONS}}
+ORBAX_WRITE_EVAL_ARGS = ["eval", "--preset", "calibration_from_oracle_matches", "--batch-size", "64", "--batches",
+                         "1", "--ate-batches", "1"]
+ORBAX_WRITE_FRONTEND_ARGS = ["fit-frontend", "--image-size", str(FRONTEND_IMAGE_SIZE), "--epochs", "1",
+                             "--batches-per-epoch", "2"]
 # the phases run in a side process beside eval_v4 ... frontend_train
-SIDE_PHASES = ("vo_eval", "vo_windows", "orbax")
+SIDE_PHASES = ("vo_eval", "vo_windows", "orbax", "orbax_write")
 # the paths whose launch counts the kernels line reports
 LAUNCH_PATHS = ("frontend_serve", "fused_objective", "k1_tune", "eval_v4", "eval_lbfgs", "frontend_train", "vo_eval",
                 "vo_windows", "vo_windows_scale_drift", "vo_windows_learned", "eval_seq_learned", "eval_seq_learned_32",
                 "learned_solver", "learned_solver_direction", "gen1_protocol_solve", "track_sequence",
-                "orbax_frontend_v2", "orbax_frontend_v3", "orbax_v5_eval")
+                "orbax_frontend_v2", "orbax_frontend_v3", "orbax_v5_eval", "orbax_write_eval",
+                "orbax_write_frontend")
 
 
 def emit(phase, **fields):
@@ -2460,6 +2498,157 @@ def orbax_phase(device):
     return out
 
 
+def _epoch_metrics(lines, split, epoch):
+    """The metrics of ``split`` at ``epoch`` among a training entry's lines
+    (without the times and the run's id)."""
+    for line in lines:
+        record = json.loads(line) if line.startswith("{") else {}
+        if record.get("split") == split and record.get("epoch") == epoch:
+            return {k: v for k, v in record.items()
+                    if k not in ("split", "epoch", "epoch_seconds", "elapsed_s", "run_id")}
+    raise AssertionError(f"orbax_write: no {split} line at epoch {epoch}")
+
+
+def _jax_chain_layout(tree, path):
+    """Raise unless ``tree``'s opt_state is the JAX trainer's optax chain:
+    [clip, [adam {count, mu, nu}, weight decay, schedule {count}]]."""
+    opt = tree["opt_state"]
+    if not (isinstance(opt, list) and opt[0] is None and isinstance(opt[1], list) and len(opt[1]) == 3
+            and set(opt[1][0]) == {"count", "mu", "nu"} and opt[1][1] is None and set(opt[1][2]) == {"count"}):
+        raise AssertionError(f"orbax_write: {path} does not hold the JAX chain's opt_state layout")
+
+
+def orbax_write_phase(device):
+    """The port's Orbax writer on the card's host and the card serving
+    from what it wrote (see ORBAX_WRITE_CONFIG): every store's round trip,
+    cli fit's 1 + 1 epochs against 2 through Orbax directories, cli eval
+    from the written directory and a front end trained, written, read back
+    and served; the two served paths each counted from 0 just before it."""
+    import davo_tpu_torch.train as train_package
+    from davo_tpu_torch import cli
+    from davo_tpu_torch.data import VOWindowConfig, generate_vo_window_batch
+    from davo_tpu_torch.models import load_frontend
+    from davo_tpu_torch.ops import build
+    from davo_tpu_torch.scripts.time_orbax_reads import STORES, host
+    from davo_tpu_torch.scripts.time_orbax_writes import round_trip
+    from davo_tpu_torch.train import fit, latest_step, load_config_yaml, render_scene_batch, restore_checkpoint
+
+    out = {"host": host(), "cpus_usable": len(os.sched_getaffinity(0))}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ORBAX_STORES:
+            t0 = time.perf_counter()
+            figures = round_trip(STORES[name], os.path.join(tmp, name), repeats=2)
+            figures["seconds"] = time.perf_counter() - t0
+            if figures["digest_read"] != figures["digest_written"]:
+                raise AssertionError(f"orbax_write: {name} read back differs from what was written")
+            out.setdefault("round_trips", {})[name] = figures
+
+        # cli fit: 2 epochs whole; 1 epoch by fit, then cli fit resuming from its Orbax directory
+        config_path, registry = os.path.join(tmp, "fit.yaml"), os.path.join(tmp, "runs")
+        with open(config_path, "w") as f:
+            json.dump(ORBAX_WRITE_CONFIG, f)  # JSON is YAML
+        fit_args = ["fit", "--config", config_path, "--registry-dir", registry, "--checkpoint-dir"]
+        whole_dir, split_dir = os.path.join(tmp, "whole"), os.path.join(tmp, "split")
+        t0 = time.perf_counter()
+        code, whole = _cli_lines(fit_args + [whole_dir])
+        t1 = time.perf_counter()
+        fit(load_config_yaml(config_path), epochs=1, checkpoint_dir=split_dir, device=device)
+        first = restore_checkpoint(split_dir, 1)
+        _jax_chain_layout(first, "checkpoint_1")
+        t2 = time.perf_counter()
+        code_resumed, resumed = _cli_lines(fit_args + [split_dir])
+        t3 = time.perf_counter()
+        if (code, code_resumed) != (0, 0) or whole[-2] != f"checkpoint: {whole_dir}/checkpoint_2" \
+                or resumed[-2] != f"checkpoint: {split_dir}/checkpoint_2":
+            raise AssertionError(f"orbax_write: cli fit exited {code}, {code_resumed}: {whole[-3:]} {resumed[-3:]}")
+        if sum(1 for line in resumed if '"split": "train"' in line) != 1 or latest_step(split_dir) != 2:
+            raise AssertionError(f"orbax_write: the resumed cli fit did not train one epoch: {resumed}")
+        worst = 0.0
+        for split in ("train", "val"):
+            want, got = _epoch_metrics(whole, split, 1), _epoch_metrics(resumed, split, 1)
+            for key, value in want.items():
+                worst = max(worst, abs(got[key] - value) / max(abs(value), 1e-30))
+        if worst > RESUME_TOL:
+            raise AssertionError(f"orbax_write: the resumed epoch differs from the uninterrupted one by {worst}")
+        _jax_chain_layout(restore_checkpoint(whole_dir), "checkpoint_2")
+        out["fit"] = dict(
+            config=ORBAX_WRITE_CONFIG, epochs="1 + 1 against 2", worst_relative_diff=worst, tolerance=RESUME_TOL,
+            equal=worst == 0.0, whole_seconds=t1 - t0, first_epoch_seconds=t2 - t1, resumed_seconds=t3 - t2,
+            checkpoint_mb=sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                              os.walk(os.path.join(whole_dir, "checkpoint_2")) for f in fs) / 1e6,
+            printed=whole[-2], final_val=json.loads(whole[-1])["final_val"],
+        )
+
+        # cli eval from the written directory
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = cli.run(ORBAX_WRITE_EVAL_ARGS + ["--checkpoint-dir", whole_dir])
+        torch.cuda.synchronize()
+        out["eval"] = dict(result=result, scenes=64, seconds=time.perf_counter() - t0,
+                           launches=dict(build.launch_counts))
+        if not all(math.isfinite(v) for v in result.values()):
+            raise AssertionError(f"orbax_write eval: non-finite metrics {result}")
+
+        # fit-frontend into an Orbax directory, the trained module kept to compare
+        frontend_dir, trained = os.path.join(tmp, "frontend"), {}
+        fit_frontend = train_package.fit_frontend
+
+        def keep(*args, **kwargs):
+            trained["state"], history = fit_frontend(*args, **kwargs)
+            return trained["state"], history
+
+        train_package.fit_frontend = keep
+        try:
+            t0 = time.perf_counter()
+            code, lines = _cli_lines(ORBAX_WRITE_FRONTEND_ARGS + ["--checkpoint-dir", frontend_dir,
+                                                                  "--registry-dir", registry])
+            fit_seconds = time.perf_counter() - t0
+        finally:
+            train_package.fit_frontend = fit_frontend
+        if code != 0 or lines[-2] != f"checkpoint: {frontend_dir}/checkpoint_1":
+            raise AssertionError(f"orbax_write: fit-frontend exited {code}: {lines[-3:]}")
+        frontend, render_config = load_frontend(frontend_dir, device=device)
+        memory = trained.pop("state").network.eval()
+        loaded, kept = frontend.state_dict(), memory.state_dict()
+        if loaded.keys() != kept.keys() or not all(torch.equal(loaded[k], kept[k]) for k in kept):
+            raise AssertionError("orbax_write: the front end read back is not the trained one bit for bit")
+        network = serve_network(device, checkpoint=WINDOW_CHECKPOINT)
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        windows = generate_vo_window_batch(torch.Generator(device).manual_seed(0), WINDOWS, VOWindowConfig(),
+                                           device=device)
+        images = render_scene_batch(torch.Generator(device).manual_seed(1000), windows, render_config)
+        matches = frontend(images)
+        params, error = network(matches.matches, matches.match_visibility,
+                                generator=torch.Generator(device).manual_seed(2000), return_error=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.launch_counts)
+        with torch.no_grad():
+            in_memory = memory(images)
+        same = torch.equal(in_memory.matches, matches.matches) and torch.equal(
+            in_memory.match_visibility, matches.match_visibility)
+        if not same:
+            raise AssertionError("orbax_write: the front end read back matches otherwise than the trained one")
+        if params.shape != (WINDOWS, network.num_parameters) or not torch.isfinite(params).all() \
+                or not torch.isfinite(error).all():
+            raise AssertionError("orbax_write frontend: a solve that is not finite")
+        out["frontend"] = dict(
+            fit_seconds=fit_seconds, printed=lines[-2], final=json.loads(lines[-1])["final"], windows=WINDOWS,
+            image_size=render_config.image_size, num_select=frontend.num_select, latency_s=seconds,
+            matches_equal_in_memory=same, visible_match_share=matches.match_visibility.float().mean().item(),
+            mean_final_error=error.mean().item(), launches=launches,
+        )
+    for name, counters in (("eval", ("bfgs_update", "calibration_value_and_grad")),
+                           ("frontend", ("bfgs_update", "calibration_value_and_grad", "match_attention"))):
+        for counter in counters:
+            if out[name]["launches"][counter] <= 0:
+                raise AssertionError(f"orbax_write {name}: never launched kernel {counter}")
+    return out
+
+
 def eval_seq_phase(device):
     """python -m davo_tpu_torch.cli eval-seq on the fixtures: compare mode,
     oracle VO and learned VO along the KITTI file through the front end, at
@@ -3275,6 +3464,7 @@ def run_phases(device, smi, paths, side):
         ("vo_eval", lambda: side_phase_result("vo_eval", side)),
         ("vo_windows", lambda: side_phase_result("vo_windows", side)),
         ("orbax", lambda: side_phase_result("orbax", side)),
+        ("orbax_write", lambda: side_phase_result("orbax_write", side)),
         ("eval_seq", lambda: eval_seq_phase(device)),
         ("learned_solver", lambda: learned_solver_phase(device)),
         ("gen1_train", lambda: gen1_train_phase(device)),
@@ -3422,6 +3612,8 @@ def main():
     paths["gen1_protocol_solve"] = paths["gen1_train"]["protocol_solve"]
     for name in ("frontend_v2", "frontend_v3", "v5_eval"):
         paths[f"orbax_{name}"] = paths["orbax"][name]
+    for name in ("eval", "frontend"):
+        paths[f"orbax_write_{name}"] = paths["orbax_write"][name]
 
     # launches: each kernel's count on the path that drives it, counted
     # from 0 just before the path and read just after: K1-K3 on the

@@ -6,7 +6,7 @@ not ported).
     python -m davo_tpu_torch.cli fit --preset calibration_from_oracle_matches \\
         --epochs 5 --checkpoint-dir <dir> --metrics-file <file.jsonl>
     python -m davo_tpu_torch.cli eval --preset calibration_transformer_curriculum \\
-        --checkpoint-dir <dir holding checkpoint_<step>.pkl or an Orbax checkpoint_<step>/> \\
+        --checkpoint-dir <dir holding an Orbax checkpoint_<step>/ or checkpoint_<step>.pkl> \\
         --hidden-size 448 --transformer-layers 10 --transformer-heads 8 --restarts 8 \\
         [--restart-proposals noise|permutation|input_noise|tokens] [--selection error|basin] \\
         [--basin-anchor W] [--guess-tokens E] [--solver lbfgs [--lbfgs-history M]]
@@ -33,19 +33,20 @@ not ported).
 
 ``fit`` trains the preset (``train/calibration.py::fit``: checkpoints of
 the whole state every 25 epochs and at the end in ``--checkpoint-dir``,
-which a later ``fit`` resumes from, as it resumes from the JAX trainer's
-Orbax checkpoints), prints a JSON line per split and epoch (also appended
-to ``--metrics-file``), the path of the final checkpoint
-(``checkpoint_<global epochs>.pkl``, which ``eval`` and the JAX package's
-``restore_checkpoint`` read) and ``{"final_val": ...}`` last.  Wherever a
+Orbax directories as the JAX trainer writes, which a later ``fit`` of
+either package resumes from), prints a JSON line per split and epoch
+(also appended to ``--metrics-file``), the path of the final checkpoint
+(``checkpoint: <dir>/checkpoint_<global epochs>``, which ``eval`` and the
+JAX package's ``restore_checkpoint`` read) and ``{"final_val": ...}``
+last.  Wherever a
 command takes a checkpoint directory it reads the JAX package's pickles
 and its Orbax ``checkpoint_<step>/`` directories alike
 (``train/checkpoint.py::restore_checkpoint``).
 On a gen-1 preset (``bfgs_solver_*``, ``mlp_guess``: the MLP guess with
 the analytic-gradient BFGS unrolled in training, or alone) ``fit`` trains
 it (``train/optimisation.py``), prints a ``train`` line an epoch, saves
-``{"params", "batch_stats"}`` in the flax names as
-``checkpoint_<epochs>.pkl`` in ``--checkpoint-dir`` and prints
+``{"params", "batch_stats"}`` in the flax names as the Orbax directory
+``checkpoint_<epochs>`` in ``--checkpoint-dir``, prints its path and
 ``{"final_train": ...}`` last; ``eval`` refuses such a preset with exit
 code 2, as the JAX CLI does.
 ``eval`` builds the preset's network (flax-style random weights from
@@ -58,10 +59,10 @@ and ``centre_error_mean``.  ``--solver lbfgs`` swaps the preset's BFGS
 for L-BFGS (the shared fields carried over, the memory from
 ``--lbfgs-history``), in ``fit`` and ``eval``.  ``fit-frontend`` trains
 the visual front end (``train/frontend.py::fit_frontend``), prints a JSON
-line per split and epoch, saves ``{"params", "batch_stats"}`` at step
-``epochs`` in ``--checkpoint-dir`` with its ``frontend_config.json``
-(which ``models/convert.py::load_frontend`` and the JAX package read),
-and prints ``{"final": ...}`` last.  ``fit-learned-solver`` trains a
+line per split and epoch, saves ``{"params", "batch_stats"}`` as the
+Orbax directory ``checkpoint_<epochs>`` in ``--checkpoint-dir`` with its
+``frontend_config.json`` (which ``models/convert.py::load_frontend`` and
+the JAX package read), prints its path and ``{"final": ...}`` last.  ``fit-learned-solver`` trains a
 learned solver on the calibration objective (``train/learned_solver.py``),
 prints a ``train`` line an epoch, pickles ``{"params", "batch_stats",
 "config"}`` to ``--checkpoint-file`` (numpy arrays and plain types, which
@@ -138,7 +139,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--val-batches", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoint_<step>.pkl files or the JAX CLI's Orbax checkpoint_<step>/ directories")
+                   help="fit: where the Orbax checkpoint_<step>/ directories go (and resume from); "
+                        "eval: read the latest, an Orbax directory or a checkpoint_<step>.pkl")
     p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
     p.add_argument("--tensorboard-dir", default=None, help=_TENSORBOARD_HELP)
     p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR, help=_REGISTRY_HELP)
@@ -223,7 +225,8 @@ def _build_parser() -> argparse.ArgumentParser:
                        ("--points", int), ("--views", int), ("--learning-rate", float), ("--seed", int)):
         fe_p.add_argument(flag, type=kind, default=None)
     fe_p.add_argument("--select", type=int, default=None, help="solver-facing tracks per window (default: --points)")
-    fe_p.add_argument("--checkpoint-dir", default=None)
+    fe_p.add_argument("--checkpoint-dir", default=None,
+                      help="where the Orbax checkpoint_<epochs>/ and frontend_config.json go")
     fe_p.add_argument("--metrics-file", default=None, help="JSONL metrics log")
     fe_p.add_argument("--tensorboard-dir", default=None, help=_TENSORBOARD_HELP)
     fe_p.add_argument("--registry-dir", default=DEFAULT_REGISTRY_DIR, help=_REGISTRY_HELP)
@@ -783,7 +786,7 @@ def _fit_or_eval(args, config, device, logger) -> dict:
         _, history = fit(config, log_fn=logger, checkpoint_dir=args.checkpoint_dir, device=device)
         if args.checkpoint_dir:
             step = latest_step(args.checkpoint_dir)
-            print(f"checkpoint: {os.path.join(os.path.abspath(args.checkpoint_dir), f'checkpoint_{step}.pkl')}", flush=True)
+            print(f"checkpoint: {os.path.join(os.path.abspath(args.checkpoint_dir), f'checkpoint_{step}')}", flush=True)
         return {"final_val": history["val"][-1] if history["val"] else {}}
 
     if args.restarts:

@@ -54,8 +54,9 @@ checkpoints with it).  The front end's Orbax checkpoint
 bit for bit, as the tests check) with its ``frontend_config.json`` beside
 it as ``frontend_v4.json``; :func:`load_frontend` builds the module from
 them, or from a checkpoint directory of either package's ``fit-frontend``
-(the port's ``checkpoint_<step>.pkl``, the JAX CLI's Orbax
-``checkpoint_<step>/``, and ``frontend_config.json``), as the JAX
+(an Orbax ``checkpoint_<step>/``, as both write, or a
+``checkpoint_<step>.pkl``, as the port wrote before, and
+``frontend_config.json``), as the JAX
 package's ``cli.py::_load_frontend_fn`` does.
 """
 
@@ -428,8 +429,8 @@ def load_frontend(
     """The front end and its :class:`RenderConfig` from a ``.npz`` of
     weights and the ``frontend_config.json`` fields beside it (``.json``
     of the same name), or from a checkpoint directory of ``fit-frontend``
-    (its latest checkpoint, a ``checkpoint_<step>.pkl`` or the JAX CLI's
-    Orbax ``checkpoint_<step>/``, and its ``frontend_config.json``, as
+    (its latest checkpoint, an Orbax ``checkpoint_<step>/`` or a
+    ``checkpoint_<step>.pkl``, and its ``frontend_config.json``, as
     ``vo-eval --frontend-checkpoint artifacts/ckpt_frontend_v4``):
     ``num_select`` (else ``default_points``), ``descriptor_channels``,
     ``embedding_size`` and ``image_size``.  ``gates`` override the

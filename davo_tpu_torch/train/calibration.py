@@ -14,7 +14,10 @@ update (the first update has learning rate 0 under the warm-up), and the
 weight decay reaches every parameter, biases and norms too, by
 ``lr * wd * p`` (eps 1e-8, no eps inside the root).  :func:`fit` runs
 epochs of train and validation steps with checkpoints in the JAX
-package's pickle format and resumes from them; :func:`fit_fov_curriculum`
+package's default Orbax format (:func:`train_state_tree`: the JAX
+trainer's ``opt_state`` layout, which its resume restores) and resumes
+from them, as from the JAX trainer's and from the port's older pickles;
+:func:`fit_fov_curriculum`
 runs narrow-to-wide field-of-view stages under one schedule.
 
 :func:`make_eval_step` draws a batch of scenes, solves it and returns the
@@ -392,13 +395,15 @@ class TrainState:
     """The network, its AdamW optimiser (one group of every parameter),
     the learning-rate schedule and the count of updates applied (the
     calibration network's and, with its front end, the front end
-    trainer's)."""
+    trainer's).  ``schedule_kind`` is :func:`learning_rate_schedule`'s
+    ``kind``: optax keeps a count for a schedule and none for a constant."""
 
     network: torch.nn.Module
     optimizer: torch.optim.AdamW
     schedule: Callable[[int], float]
     clip_norm: float
     step: int = 0
+    schedule_kind: str = "warmup_cosine"
 
     @classmethod
     def adamw(
@@ -412,7 +417,7 @@ class TrainState:
             network.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
         )
         return cls(network, optimizer, learning_rate_schedule(learning_rate, total_steps, warmup_steps, schedule),
-                   clip_norm)
+                   clip_norm, schedule_kind=schedule)
 
     def apply_gradients(self, gradients: List[torch.Tensor]) -> None:
         """Clip, then one AdamW update at the schedule's rate for the
@@ -476,10 +481,14 @@ def _num_heads(network: CalibrationNetwork) -> Optional[int]:
 
 
 def train_state_tree(state: TrainState) -> dict:
-    """The state as the JAX package's checkpoint holds it, in numpy:
-    flax-named ``params`` and ``batch_stats``, ``opt_state`` (the Adam
-    moments ``mu``, ``nu`` as flax-named trees and their ``count``) and
-    ``step``."""
+    """The state as the JAX trainer's checkpoint holds it, in numpy:
+    flax-named ``params`` and ``batch_stats``, ``opt_state`` laid out as
+    the state of its ``chain(clip_by_global_norm, adamw(lr))``, and
+    ``step``.  ``opt_state`` is ``[clip, [adam, decay, lr]]``: the clip's
+    and the weight decay's states are empty (``None``), adam's is ``{"count",
+    "mu", "nu"}`` (the moments as flax-named trees), and ``lr``'s is
+    ``{"count"}`` under a schedule, ``None`` at a constant rate; the counts
+    are int32, as optax's."""
     network, heads = state.network, _num_heads(state.network)
     params, batch_stats = state_dict_to_flax(network.state_dict(), num_heads=heads)
     moments = {}
@@ -489,15 +498,19 @@ def train_state_tree(state: TrainState) -> dict:
             for name, p in network.named_parameters()
         }
         moments[key] = state_dict_to_flax(named, num_heads=heads)[0]
-    opt_state = {"count": state.step, "mu": moments["exp_avg"], "nu": moments["exp_avg_sq"]}
+    count = np.asarray(state.step, np.int32)
+    adam = {"count": count, "mu": moments["exp_avg"], "nu": moments["exp_avg_sq"]}
+    schedule = {"count": count.copy()} if state.schedule_kind != "constant" else None
+    opt_state = [None, [adam, None, schedule]]
     return {"params": params, "batch_stats": batch_stats, "opt_state": opt_state, "step": state.step}
 
 
 def _adam_state(opt_state: Any) -> Optional[dict]:
     """The Adam ``count``, ``mu`` and ``nu`` of a checkpoint's
-    ``opt_state``: the port's own dict, or found in the JAX trainer's
-    optax chain (clip_by_global_norm, then adamw) as a restore gives it, a
-    sequence whose states are dicts of their fields."""
+    ``opt_state``: the dict the port's pickles held before it wrote the JAX
+    layout, or found in the JAX trainer's optax chain (clip_by_global_norm,
+    then adamw) as a restore gives it, a sequence whose states are dicts of
+    their fields (:func:`train_state_tree`'s layout)."""
     if isinstance(opt_state, dict) and {"count", "mu", "nu"} <= set(opt_state):
         return opt_state
     if isinstance(opt_state, (list, tuple)):
@@ -509,8 +522,9 @@ def _adam_state(opt_state: Any) -> Optional[dict]:
 
 
 def restore_train_state(state: TrainState, tree: dict) -> None:
-    """Load a :func:`train_state_tree`, or the JAX trainer's checkpoint of
-    its state (pickle or Orbax), into ``state``, in place."""
+    """Load a :func:`train_state_tree`, the JAX trainer's checkpoint of
+    its state, or a port pickle of the older ``{count, mu, nu}`` layout
+    (pickle or Orbax), into ``state``, in place."""
     network = state.network
     load_flax_weights(network, tree["params"], tree.get("batch_stats"))
     opt_state = _adam_state(tree["opt_state"])
@@ -548,7 +562,8 @@ def fit(
     continues from its update count.  ``epoch_offset`` shifts the epochs
     passed to ``log_fn``, the data's key paths and the checkpoint steps,
     which are global epochs.  With ``checkpoint_dir`` the whole state is
-    saved every ``checkpoint_every`` epochs and at the end, and a fresh
+    saved every ``checkpoint_every`` epochs and at the end as an Orbax
+    ``checkpoint_<global epoch>/`` (:func:`train_state_tree`), and a fresh
     ``fit`` pointed at the directory resumes from its latest checkpoint.
     """
     device = resolve_device(device)

@@ -338,10 +338,10 @@ def fit_frontend(
 
 def save_frontend_checkpoint(directory: str, step: int, network: VOFrontend, config: FrontendExperiment) -> str:
     """What ``fit-frontend`` saves: ``{"params", "batch_stats"}`` (flax-named)
-    as ``checkpoint_<step>.pkl`` in the JAX package's pickle format, and
-    ``frontend_config.json`` with the architecture and the rendered size
-    (:func:`davo_tpu_torch.models.load_frontend` reads the directory).
-    Returns the checkpoint's path."""
+    as the Orbax directory ``checkpoint_<step>/``, the JAX CLI's format,
+    and ``frontend_config.json`` beside it with the architecture and the
+    rendered size (:func:`davo_tpu_torch.models.load_frontend` and the JAX
+    CLI read the directory).  Returns the checkpoint's path."""
     params, batch_stats = frontend_state_to_flax(network.state_dict())
     path = save_checkpoint(directory, step, {"params": params, "batch_stats": batch_stats})
     arch = {

@@ -23,19 +23,29 @@ checkpoint reader needs, ``list()`` and ``read(key)``, and adds
 ``read_many``.  An unknown format version, compression id, manifest kind
 or value kind raises ``ValueError``, as does a checksum that does not
 match.
+
+:func:`write_store` is the write side: one writer, one version.  It
+writes the store at a directory's root (``manifest.ocdbt`` and one data
+file under ``d/``), the layout tensorstore reads and Orbax restores from
+(Orbax's own ``ocdbt.process_<n>/`` sub-stores exist for several writing
+processes, which a port save never has).  The store is uncompressed:
+compression id 0 in the configuration and in every frame, which
+tensorstore and the reader above read as they read zstd (no zstd encoder
+is needed, and a checkpoint's float arrays compress little).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Iterable, List, Tuple, Union
+import time
+from typing import Dict, Iterable, List, Mapping, NamedTuple, Tuple, Union
 
 import numpy as np
 
 from davo_tpu_torch.utils.zstd import decompress
 
-__all__ = ["OcdbtStore"]
+__all__ = ["OcdbtStore", "write_store"]
 
 _MANIFEST_MAGIC = 0x0CDB3A2A
 _BTREE_NODE_MAGIC = 0x0CDB20DE
@@ -293,3 +303,178 @@ class OcdbtStore:
                     if len(out[i]) != length:
                         raise ValueError(f"ocdbt: {path} ends before byte {offset + length}")
         return out
+
+
+# ---------------------------------------------------------------- write ----
+
+# tensorstore's defaults for a store Orbax creates (its manifests carry them)
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+_MAX_VARINT = 10  # bytes of a 64-bit varint at most
+
+
+def _varint(value: int) -> bytes:
+    out = bytearray()
+    while value >= 0x80:
+        out.append((value & 0x7F) | 0x80)
+        value >>= 7
+    out.append(value)
+    return bytes(out)
+
+
+def _varints(values: Iterable[int]) -> bytes:
+    return b"".join(map(_varint, values))
+
+
+def _common_prefix(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n
+
+
+def _encode_framed(body: bytes, magic: int) -> bytes:
+    """``body`` framed as :func:`_decode_framed` reads it: format version
+    0, compression 0 (none)."""
+    head = magic.to_bytes(4, "big") + (4 + 8 + 2 + len(body) + 4).to_bytes(8, "little") + _varint(0) + _varint(0)
+    encoded = head + body
+    return encoded + crc32c(encoded).to_bytes(4, "little")
+
+
+def _encode_prefixed(strings: List[bytes], middle: bytes = b"") -> bytes:
+    """``strings`` prefix-compressed, each against the one before: the
+    prefix lengths (from the second), the suffix lengths, ``middle`` (the
+    fields a table or node puts between them and the bytes), the suffixes."""
+    prefix = [_common_prefix(a, b) for a, b in zip(strings, strings[1:])]
+    suffix = [s[p:] for s, p in zip(strings, [0] + prefix)]
+    return _varints(prefix) + _varints(map(len, suffix)) + middle + b"".join(suffix)
+
+
+def _encode_table(paths: List[bytes]) -> bytes:
+    """A data file table of ``paths`` (relative to the store's root, each
+    with an empty base path)."""
+    return _varint(len(paths)) + _encode_prefixed(paths, _varints([0] * len(paths)))
+
+
+class _Node(NamedTuple):
+    """A written B-tree node: the full keys it spans, the prefix its keys
+    are stored relative to, its location and its subtree's statistics."""
+
+    first: bytes
+    last: bytes
+    prefix: bytes
+    offset: int
+    length: int
+    keys: int
+    tree_bytes: int
+    indirect_bytes: int
+
+
+def _groups(costs: List[int], fixed: int, limit: int) -> List[Tuple[int, int]]:
+    """Consecutive ranges of entries whose costs, with ``fixed``, stay
+    within ``limit``."""
+    out, start, size = [], 0, fixed
+    for i, cost in enumerate(costs):
+        if fixed + cost > limit:
+            raise ValueError(f"ocdbt: an entry of up to {cost} bytes does not fit a node of "
+                             f"max_decoded_node_bytes {limit}; lower max_inline_value_bytes")
+        if i > start and size + cost > limit:
+            out.append((start, i))
+            start, size = i, fixed
+        size += cost
+    out.append((start, len(costs)))
+    return out
+
+
+def write_store(
+    directory: Union[str, os.PathLike],
+    items: Mapping[bytes, Union[bytes, bytearray, memoryview, np.ndarray]],
+    *,
+    max_inline_value_bytes: int = MAX_INLINE_VALUE_BYTES,
+    max_decoded_node_bytes: int = MAX_DECODED_NODE_BYTES,
+) -> None:
+    """Write ``items`` (key: value bytes, or any C-contiguous buffer) as a
+    new OCDBT store at ``directory``: a manifest of one version (generation
+    1) and one data file, ``d/<32 hex digits>``, holding the values longer
+    than ``max_inline_value_bytes``, then the B-tree's leaves, then its
+    interior nodes, level by level up to the root.  A node holds as many
+    entries as keep its body within ``max_decoded_node_bytes``; a node
+    below the root stores its keys relative to the longest prefix its
+    subtree's keys share."""
+    if not items:
+        raise ValueError("ocdbt: a store needs at least one key")
+    entries = sorted(((k.encode() if isinstance(k, str) else bytes(k), v) for k, v in items.items()),
+                     key=lambda entry: entry[0])
+    data_path = f"d/{os.urandom(16).hex()}".encode()
+    table = _encode_table([data_path])
+    os.makedirs(os.path.join(directory, "d"), exist_ok=True)
+    with open(os.path.join(directory, data_path.decode()), "wb") as f:
+        offset = 0
+        # (key, inline value or None, length, offset in the data file)
+        leaves = []
+        for key, value in entries:
+            view = memoryview(value).cast("B") if not isinstance(value, bytes) else value
+            if len(view) <= max_inline_value_bytes:
+                leaves.append((key, bytes(view), len(view), 0))
+            else:
+                f.write(view)
+                leaves.append((key, None, len(view), offset))
+                offset += len(view)
+
+        def write_node(body: bytes) -> Tuple[int, int]:
+            nonlocal offset
+            encoded = _encode_framed(body, _BTREE_NODE_MAGIC)
+            f.write(encoded)
+            offset += len(encoded)
+            return offset - len(encoded), len(encoded)
+
+        # an entry's bytes in its node at most: its key whole, every varint at its longest
+        fixed = 1 + len(table) + _MAX_VARINT
+        costs = [len(k) + 4 * _MAX_VARINT + (2 * _MAX_VARINT if v is None else n) for k, v, n, _ in leaves]
+        groups = _groups(costs, fixed, max_decoded_node_bytes)
+        nodes = []
+        for start, stop in groups:
+            part = leaves[start:stop]
+            first, last = part[0][0], part[-1][0]
+            prefix = first[:_common_prefix(first, last)] if len(groups) > 1 else b""
+            keys = [k[len(prefix):] for k, _, _, _ in part]
+            indirect = [(o, n) for _, v, n, o in part if v is None]
+            body = (bytes([0]) + (table if indirect else _encode_table([])) + _varint(len(part))
+                    + _encode_prefixed(keys) + _varints(n for _, _, n, _ in part)
+                    + _varints(int(v is None) for _, v, _, _ in part)
+                    + _varints([0] * len(indirect)) + _varints(o for o, _ in indirect)
+                    + b"".join(v for _, v, _, _ in part if v is not None))
+            at, length = write_node(body)
+            nodes.append(_Node(first, last, prefix, at, length, len(part), length, sum(n for _, n in indirect)))
+        height = 0
+        while len(nodes) > 1:
+            height += 1
+            costs = [len(node.first) + 9 * _MAX_VARINT for node in nodes]
+            groups = _groups(costs, fixed, max_decoded_node_bytes)
+            parents = []
+            for start, stop in groups:
+                part = nodes[start:stop]
+                first, last = part[0].first, part[-1].last
+                prefix = first[:_common_prefix(first, last)] if len(groups) > 1 else b""
+                keys = [node.first[len(prefix):] for node in part]
+                body = (bytes([height]) + table + _varint(len(part))
+                        + _encode_prefixed(keys, _varints(len(node.prefix) - len(prefix) for node in part))
+                        + _varints([0] * len(part)) + _varints(node.offset for node in part)
+                        + _varints(node.length for node in part) + _varints(node.keys for node in part)
+                        + _varints(node.tree_bytes for node in part)
+                        + _varints(node.indirect_bytes for node in part))
+                at, length = write_node(body)
+                parents.append(_Node(first, last, prefix, at, length, sum(n.keys for n in part),
+                                     length + sum(n.tree_bytes for n in part),
+                                     sum(n.indirect_bytes for n in part)))
+            nodes = parents
+    root = nodes[0]
+    config = (os.urandom(16) + _varint(0) + _varint(max_inline_value_bytes) + _varint(max_decoded_node_bytes)
+              + bytes([VERSION_TREE_ARITY_LOG2]) + _varint(0))
+    version = (_varint(1) + _varint(1) + bytes([height]) + _varint(0) + _varint(root.offset) + _varint(root.length)
+               + _varints([root.keys, root.tree_bytes, root.indirect_bytes])
+               + time.time_ns().to_bytes(8, "little") + _varint(0))
+    with open(os.path.join(directory, "manifest.ocdbt"), "wb") as f:
+        f.write(_encode_framed(config + table + version, _MANIFEST_MAGIC))

@@ -14,6 +14,14 @@ Supported: ``zarr_format`` 2, order ``C``, no filters, compressor
 ``bfloat16`` (as ``ml_dtypes.bfloat16``, JAX's numpy type for it, which
 must then be importable).  Anything else raises ``ValueError`` naming
 what it found.
+
+:func:`write_arrays` is the write side: the store items of numpy arrays
+as Orbax writes an array held whole on one device (one chunk, the
+array's shape; C order, no filters, ``fill_value`` null,
+``dimension_separator`` "."), uncompressed (``compressor`` null, as the
+OCDBT store around them is; see :mod:`davo_tpu_torch.train.ocdbt`).  It
+takes the dtypes above and raises ``ValueError`` on any other, and on an
+array of no elements, which Orbax refuses to save too.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping
 
 import numpy as np
 
@@ -29,7 +37,7 @@ from davo_tpu_torch.utils.zstd import decompress_many
 
 from .ocdbt import OcdbtStore
 
-__all__ = ["read_arrays"]
+__all__ = ["read_arrays", "write_arrays"]
 
 # compressed bytes decompressed in one call (its working memory is a few
 # times this): a checkpoint's chunks in a few calls, each decoding its
@@ -111,3 +119,30 @@ def read_arrays(store: OcdbtStore, names: Iterable[str]) -> Dict[str, np.ndarray
         region = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(index, chunks, meta["shape"]))
         array[region] = chunk[tuple(slice(0, r.stop - r.start) for r in region)]
     return out
+
+
+def _dtype_name(array: np.ndarray, name: str) -> str:
+    if array.dtype.name == "bfloat16":
+        return "bfloat16"
+    if array.dtype.str in _DTYPES:
+        return array.dtype.str
+    raise ValueError(f"zarr: {name} has dtype {array.dtype.str!r} ({array.dtype}); "
+                     f"supported: {sorted(_DTYPES) + ['bfloat16']}")
+
+
+def write_arrays(arrays: Mapping[str, np.ndarray]) -> Dict[bytes, object]:
+    """The OCDBT items of ``arrays`` (name: numpy array): ``<name>/.zarray``
+    and the one chunk ``<name>/0.0...`` (``<name>/0`` for a scalar), the
+    chunk as a read-only view of the array's bytes."""
+    items: Dict[bytes, object] = {}
+    for name, array in arrays.items():
+        dtype = _dtype_name(array, name)
+        if array.size == 0:
+            raise ValueError(f"zarr: {name} has shape {array.shape}, no element: Orbax saves no such array")
+        shape = list(array.shape)
+        meta = dict(chunks=shape, compressor=None, dimension_separator=".", dtype=dtype, fill_value=None,
+                    filters=None, order="C", shape=shape, zarr_format=2)
+        items[f"{name}/.zarray".encode()] = json.dumps(meta, separators=(",", ":"), sort_keys=True).encode()
+        chunk = ".".join("0" for _ in shape) or "0"
+        items[f"{name}/{chunk}".encode()] = np.ascontiguousarray(array).reshape(-1).view(np.uint8)
+    return items

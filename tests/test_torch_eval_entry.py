@@ -381,7 +381,7 @@ def test_cli_fit_gen1_and_eval_refusal(tmp_path, capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert set(json.loads(out[0])) == {"run_id", "config_hash", "git_sha"}  # the registered run
     assert json.loads(out[1])["split"] == "train"
-    assert out[2] == f"checkpoint: {tmp_path / 'checkpoint_1.pkl'}"
+    assert out[2] == f"checkpoint: {tmp_path / 'checkpoint_1'}"  # an Orbax directory, as the JAX CLI writes
     final = json.loads(out[-1])["final_train"]
     assert {"loss", "mean_error", "focal_length_loss", "cx_loss", "cy_loss"} <= set(final)
     assert all(np.isfinite(v) for v in final.values())

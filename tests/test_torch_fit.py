@@ -80,9 +80,9 @@ def test_fit_logs_finite_metrics(tmp_path):
 
 
 def _flat(tree, prefix=""):
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list, tuple)):
         out = {}
-        for key, value in tree.items():
+        for key, value in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
             out.update(_flat(value, f"{prefix}/{key}"))
         return out
     return {prefix: np.asarray(tree)}
@@ -102,9 +102,11 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
     assert want.keys() == got.keys()
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    assert np.abs(want["/opt_state/mu/initial_estimator/head/kernel"]).max() > 0  # the moments round-tripped
+    # the moments round-tripped (opt_state is the JAX chain's [clip, [adam, decay, schedule]])
+    assert np.abs(want["/opt_state/1/0/mu/initial_estimator/head/kernel"]).max() > 0
     # a save interrupted before its rename is not a checkpoint
     (tmp_path / "split" / "checkpoint_9.pkl.tmp").write_bytes(b"")
+    (tmp_path / "split" / "checkpoint_8.orbax-checkpoint-tmp-1760000000").mkdir()
     assert latest_step(str(tmp_path / "split")) == 2
 
 
@@ -165,9 +167,14 @@ def test_port_checkpoint_restores_in_jax(tmp_path, setting):
     np.testing.assert_allclose(guess, np.asarray(j_guess), rtol=1e-10, atol=1e-10)
 
 
-def test_save_checkpoint_writes_numpy(tmp_path):
-    path = save_checkpoint(str(tmp_path), 3, {"params": {"w": torch.ones(2)}, "step": 3})
-    assert path.endswith("checkpoint_3.pkl")
+@pytest.mark.parametrize("format", ["orbax", "pickle"])
+def test_save_checkpoint_writes_numpy(tmp_path, format):
+    """The default is the JAX package's (davo_tpu/train/checkpoint.py):
+    an Orbax directory; ``format="pickle"`` writes the single file."""
+    kwargs = {} if format == "orbax" else {"format": format}
+    path = save_checkpoint(str(tmp_path), 3, {"params": {"w": torch.ones(2)}, "step": 3}, **kwargs)
+    assert path == str(tmp_path / ("checkpoint_3" if format == "orbax" else "checkpoint_3.pkl"))
+    assert (tmp_path / "checkpoint_3").is_dir() == (format == "orbax")
     restored = restore_checkpoint(str(tmp_path))
     assert isinstance(restored["params"]["w"], np.ndarray) and restored["step"] == 3
 
@@ -221,7 +228,8 @@ def test_cli_fit_resumes_from_its_checkpoint_dir(tmp_path, capsys):
         argv = FIT_ARGS[:FIT_ARGS.index("--epochs") + 1] + [str(epochs)] + FIT_ARGS[FIT_ARGS.index("--epochs") + 2 :]
         assert cli.main(argv + ["--checkpoint-dir", str(directory), "--registry-dir", str(tmp_path / "runs")]) == 0
         lines = capsys.readouterr().out.strip().splitlines()
-        assert lines[-2] == f"checkpoint: {directory / f'checkpoint_{epochs}.pkl'}"
+        assert lines[-2] == f"checkpoint: {directory / f'checkpoint_{epochs}'}"
+        assert (directory / f"checkpoint_{epochs}" / "_METADATA").is_file()  # an Orbax directory
         assert {"params", "batch_stats", "opt_state", "step"} <= set(restore_checkpoint(str(directory), epochs))
         return {k: v for k, v in json.loads(lines[-1])["final_val"].items() if k != "epoch_seconds"}
 

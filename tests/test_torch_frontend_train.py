@@ -281,7 +281,7 @@ def test_cli_fit_frontend_checkpoint_reads_in_jax_and_the_port(tmp_path, capsys)
     lines = capsys.readouterr().out.strip().splitlines()
     final = json.loads(lines[-1])["final"]
     assert "match_inlier_rate" in final and all(np.isfinite(list(final.values())))
-    assert lines[-2] == f"checkpoint: {tmp_path / 'ckpt' / 'checkpoint_1.pkl'}"
+    assert lines[-2] == f"checkpoint: {tmp_path / 'ckpt' / 'checkpoint_1'}"  # an Orbax directory, as the JAX CLI's
     # the registered run's manifest heads the file (and sits in the
     # checkpoint directory), then a train and a val record
     records = [json.loads(line) for line in metrics.read_text().splitlines()]

@@ -7,8 +7,9 @@ L-BFGS eval solve on the card (through K2) against the CPU's; and the
 incremental-VO accumulator on clean inputs, the card in float32 against
 the CPU in float64; the windows pipeline's oracle-guess recovery on
 the card; the distorted calibration's LM on the card against the CPU
-(float64, 1e-9) and ``eval-distorted``; and sequential tracking, K3 at 8
-and 32 track queries against 144 cells.
+(float64, 1e-9) and ``eval-distorted``; sequential tracking, K3 at 8
+and 32 track queries against 144 cells; and the Orbax writer on CUDA
+tensors.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips elsewhere.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -573,3 +574,19 @@ def test_track_sequence_on_the_card_launches_k3_once_a_frame(cuda_device):
     torch.cuda.synchronize()
     assert build.launch_counts["match_attention"] == images.shape[1] - 1
     assert out.matches.shape == (images.shape[0], images.shape[1], 8, 2) and bool(torch.isfinite(out.matches).all())
+
+
+@pytest.mark.gpu
+def test_save_checkpoint_takes_cuda_tensors(tmp_path, cuda_device):
+    """The Orbax writer on tensors on the card (float32, float64, a 0-d
+    int64 step): moved to the host and read back bit for bit."""
+    from davo_tpu_torch.train import restore_checkpoint, save_checkpoint
+
+    tree = {"params": {"w": torch.randn(64, 33, device=cuda_device),
+                       "h": torch.ones(3, device=cuda_device, dtype=torch.float64)},
+            "step": torch.tensor(5, device=cuda_device)}
+    path = save_checkpoint(str(tmp_path), 5, tree)
+    assert path == str(tmp_path / "checkpoint_5")
+    back = restore_checkpoint(str(tmp_path))
+    assert back["params"]["w"].tobytes() == tree["params"]["w"].cpu().numpy().tobytes()
+    assert back["params"]["h"].dtype == np.float64 and back["step"].dtype == np.int64 and int(back["step"]) == 5

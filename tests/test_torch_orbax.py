@@ -283,9 +283,9 @@ def test_restore_train_state_resumes_a_jax_orbax_fit(tmp_path):
     for name in ("dense_1", "head"):
         np.testing.assert_array_equal(saved["params"]["initial_estimator"][name]["kernel"],
                                       np.asarray(tree["params"]["initial_estimator"][name]["kernel"], np.float64))
-        np.testing.assert_array_equal(saved["opt_state"]["mu"]["initial_estimator"][name]["kernel"],
+        np.testing.assert_array_equal(saved["opt_state"][1][0]["mu"]["initial_estimator"][name]["kernel"],
                                       np.asarray(adam.mu["initial_estimator"][name]["kernel"], np.float64))
-    assert np.abs(saved["opt_state"]["nu"]["initial_estimator"]["head"]["kernel"]).max() > 0
+    assert np.abs(saved["opt_state"][1][0]["nu"]["initial_estimator"]["head"]["kernel"]).max() > 0
     # fit finds the JAX checkpoint at epoch 1 and trains epoch 2 from it
     resumed, history = fit(config, device="cpu", checkpoint_dir=str(tmp_path))
     assert len(history["train"]) == 1 and resumed.step == 1 + config.batches_per_epoch
